@@ -1,0 +1,11 @@
+"""Metric tracking, result logging, timers and device policy."""
+
+from bmcnet_esr_torch.utils.device import resolve_device, strict_fp32
+from bmcnet_esr_torch.utils.metrics import MetricTracker
+from bmcnet_esr_torch.utils.timers import DeviceTimer, Timer
+from bmcnet_esr_torch.utils.yaml_logger import YamlResultLogger
+
+__all__ = [
+    "resolve_device", "strict_fp32", "MetricTracker", "DeviceTimer", "Timer",
+    "YamlResultLogger",
+]
