@@ -8,8 +8,10 @@
 
 The rollout is the stride-1 stateful pass of the reference scripts;
 ``--seql`` and ``--step_size`` are accepted for interface parity and do not
-change its outputs.  The int8 dtypes, ``--ema`` and ``--mesh_devices > 1``
-are not ported yet and exit naming their ROADMAP.md item.
+change its outputs.  ``--dtype int8*`` runs the int8 serving modes (static
+scales calibrated on each file's first windows).  ``--ema`` and
+``--mesh_devices > 1`` are not ported yet and exit naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def main(argv=None):
     p.add_argument("--dtype", type=str, default="float32",
                    choices=list(DTYPES) + list(INT8_DTYPES),
                    help="float32 = parity path (TF32 off); bfloat16 = serving path "
-                        "(rel-RMSE < 5e-2 against float32); int8 modes are not ported yet")
+                        "(rel-RMSE < 5e-2 against float32); int8* = W8A8 serving modes "
+                        "(the same bound)")
     p.add_argument("--no_images", action="store_true", help="skip PNG streams")
     p.add_argument("--ema", action="store_true",
                    help="not ported yet: needs Orbax train-state checkpoints")
@@ -79,9 +82,6 @@ def main(argv=None):
                    help="cuda (default; fails without a GPU) or cpu")
     args = p.parse_args(argv)
 
-    if args.dtype in INT8_DTYPES:
-        raise SystemExit(f"--dtype {args.dtype}: int8 serving is not ported yet "
-                         "(ROADMAP.md Queue 1 item 6)")
     if args.mesh_devices > 1:
         raise SystemExit("--mesh_devices > 1: sharded rollouts are not ported yet "
                          "(ROADMAP.md Queue 1 item 8)")

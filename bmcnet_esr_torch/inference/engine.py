@@ -23,10 +23,13 @@ metrics come back to the host.  Behaviour kept from the JAX engine:
 * ``gt_available`` and ``h2d_overlap_skips`` in every result;
 * a double-buffered host loader thread; uploads go from pinned memory with
   ``non_blocking=True`` on a side stream, and with ``h2d_overlap`` the next
-  chunk's upload is enqueued while the current chunk computes.
+  chunk's upload is enqueued while the current chunk computes;
+* int8 models: static per-lane scales calibrated over (up to) the first 16
+  window pairs of every file or batched group (``engine.py:260-283``),
+  never overwriting scales the caller installed.
 
-Not ported: int8 dtypes (ROADMAP.md Queue 1 item 6), Orbax / EMA
-checkpoints (item 7) and ``mesh=`` sharding (item 8).
+Not ported: Orbax / EMA checkpoints (ROADMAP.md Queue 1 item 7) and
+``mesh=`` sharding (item 8).
 """
 
 from __future__ import annotations
@@ -44,17 +47,32 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from bmcnet_esr_torch.data import DatasetConfig, EventH5Dataset
 from bmcnet_esr_torch.losses.restore import psnr_metric, ssim_metric
-from bmcnet_esr_torch.models import BMCNet, BMCNetPlain, count_params, load_checkpoint
-from bmcnet_esr_torch.models.bmcnet import QUANT_TODO
+from bmcnet_esr_torch.models import (
+    BMCNet,
+    BMCNetPlain,
+    act_scales,
+    calibrate_act_scales,
+    count_params,
+    load_checkpoint,
+)
 from bmcnet_esr_torch.ops.batch import batch_counts_from_compact, compact_events
 from bmcnet_esr_torch.ops.resize import resize_bicubic
 from bmcnet_esr_torch.utils import MetricTracker, YamlResultLogger, resolve_device, strict_fp32
 from bmcnet_esr_torch.vis import EventVisualizer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-INT8_DTYPES = ("int8", "int8_pconv", "int8_p1x1", "int8_pall", "int8_pquant",
-               "int8_chain", "int8_chainq")
+# int8 serving dtypes -> the model's quant mode (models/layers.py); the model
+# itself computes in bf16 around the int8 convolutions
+INT8_DTYPES = {"int8": True, "int8_pconv": "pconv", "int8_p1x1": "p1x1",
+               "int8_pall": "pall", "int8_pquant": "pquant", "int8_chain": "chain",
+               "int8_chainq": "chainq"}
 _STREAMS = ("lr_event_img", "hr_esr_event_img", "hr_bicubic_event_img", "hr_gt_event_img")
+
+def _calib_pairs(inp_xy: torch.Tensor, inp_p: torch.Tensor, inp_res) -> torch.Tensor:
+    """A chunk's compact input windows -> its ``[S, B, 2, H, W, 2]`` pairs."""
+    frames = batch_counts_from_compact(inp_xy, inp_p, inp_res)
+    return torch.stack([frames[:-1], frames[1:]], 2)
+
 
 # load_chunk(pos, steps) -> ((inp_xy, inp_p), (gt_xy, gt_p)): compact numpy
 # windows pos .. pos+steps for the input ([steps+1, B, 2, N] / [steps+1, B, N])
@@ -77,14 +95,17 @@ def load_model_for_inference(
 
     ``dtype='bfloat16'`` is the serving path (float32 parameters, bf16
     activations); ``float32`` is the parity default and turns TF32 off.
+    The ``int8*`` dtypes (:data:`INT8_DTYPES`) build the bf16 model in that
+    int8 quant mode; the engine calibrates its static scales.
     """
-    if dtype in INT8_DTYPES:
-        raise NotImplementedError(f"dtype={dtype!r}: {QUANT_TODO}")
-    if dtype not in DTYPES:
-        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
+    if dtype not in DTYPES and dtype not in INT8_DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES) + sorted(INT8_DTYPES)}, "
+                         f"got {dtype!r}")
     dev = resolve_device(device)
     cls = BMCNetPlain if variant == "plain" else BMCNet
-    model = cls(scale=scale, n_c=n_c, n_b=n_b, dtype=DTYPES[dtype])
+    quant = INT8_DTYPES.get(dtype, False)
+    model = cls(scale=scale, n_c=n_c, n_b=n_b, dtype=DTYPES.get(dtype, torch.bfloat16),
+                quant=quant)
     model.load_state_dict(load_checkpoint(checkpoint_path), strict=True)
     strict_fp32()
     return model.to(dev, memory_format=torch.channels_last).eval()
@@ -147,6 +168,10 @@ class InferenceEngine:
         self.h2d_overlap = bool(h2d_overlap)
         self._overlap_skips = 0
         self._macs: Dict[Tuple, float] = {}  # MACs per window, by (batch, input resolution)
+        # int8: True once this engine installed the static scales, which it
+        # then derives anew for every file / group, so each lane's scale
+        # comes from its own stream; scales the caller installed are kept
+        self._auto_quant = False
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
@@ -190,9 +215,27 @@ class InferenceEngine:
     # -- one chunk -----------------------------------------------------------
 
     def _macs_per_window(self, pair: torch.Tensor, carry) -> float:
+        model = self.model
+        if model.quant:
+            # the int8 kernels launch through ctypes, out of the flop
+            # counter's sight: count the same network in float, shapes only
+            with torch.device("meta"):
+                model = type(model)(model.scale, model.n_c, model.n_b, model.repeat,
+                                    dtype=model.dtype)
+            pair, carry = pair.to("meta"), tuple(c.to("meta") for c in carry)
         with FlopCounterMode(display=False) as fc:
-            self.model(pair, *carry)
+            model(pair, *carry)
         return fc.get_total_flops() / 2.0 / pair.shape[0]
+
+    def _maybe_calibrate(self, dev, inp_res, batch: int) -> None:
+        """int8 static scales from (up to) 16 recurrent steps over the first
+        chunk's windows, per lane (``models/quant.calibrate_act_scales``)."""
+        if not self.model.quant or (act_scales(self.model) and not self._auto_quant):
+            return
+        pairs = _calib_pairs(dev[0], dev[1], inp_res)
+        calibrate_act_scales(self.model, pairs,
+                             self.model.init_state(batch, *inp_res, device=self.device))
+        self._auto_quant = True
 
     def _run_chunk(self, carry, dev, inp_res, gt_res, want_images: bool):
         """Enqueue one chunk; returns the new carry and device results."""
@@ -246,6 +289,8 @@ class InferenceEngine:
                         next_up = self._upload(arrays)
                     dev = self._adopt(next_up)
                     next_up = None
+                    if ci == 0:
+                        self._maybe_calibrate(dev, inp_res, batch)
                     if (batch, inp_res) not in self._macs:
                         # outside the timed region: the flop count (one extra
                         # forward per shape, outputs dropped) doubles as a warm-up

@@ -18,7 +18,9 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -79,3 +81,31 @@ def _build_and_load(source: str) -> ctypes.CDLL:
             )
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)
+
+
+def device_kind(*ts: torch.Tensor) -> str:
+    """``"cpu"`` or ``"cuda"``: the one device all of ``ts`` lie on."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
+    kind = ts[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"kernels run on cpu or cuda tensors, not {kind}")
+    return kind
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Sequence[int]) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise TypeError(f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn, args: Sequence, device: torch.device, error_string: Callable) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on the current stream of
+    ``device``; raise with CUDA's error text if the launch failed."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: {error_string(rc).decode()} ({rc})")

@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from bmcnet_esr_torch.kernels._build import load_library
+from bmcnet_esr_torch.kernels._build import device_kind, launch, load_library
 
 SOURCE = "rasterize.cu"
 
@@ -66,24 +66,9 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _device_kind(*ts: torch.Tensor) -> str:
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
-    kind = ts[0].device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"rasterizer runs on cpu or cuda tensors, not {kind}")
-    return kind
-
-
 def _launch(fn, args, out: torch.Tensor) -> torch.Tensor:
     global launches
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        msg = _lib().rasterize_error_string(rc).decode()
-        raise RuntimeError(f"rasterize kernel launch failed: {msg} ({rc})")
+    launch(fn, args, out.device, _lib().rasterize_error_string)
     launches += 1
     return out
 
@@ -97,7 +82,7 @@ def counts_from_compact(
     if xy.shape[1] != 2 or p.shape != (xy.shape[0], xy.shape[2]):
         raise ValueError(f"shape mismatch: xy {tuple(xy.shape)}, p {tuple(p.shape)}")
     h, w = int(sensor_size[0]), int(sensor_size[1])
-    if _device_kind(xy, p) == "cpu":
+    if device_kind(xy, p) == "cpu":
         return counts_plain(xy[:, 0], xy[:, 1], p, (h, w))
     g, _, n = xy.shape
     out = torch.zeros((g, h, w, 2), dtype=torch.float32, device=xy.device)
@@ -111,7 +96,7 @@ def counts_from_events(events: torch.Tensor, sensor_size: Tuple[int, int]) -> to
     if events.shape[1] != 4:
         raise ValueError(f"events must be [G, 4, N], got {tuple(events.shape)}")
     h, w = int(sensor_size[0]), int(sensor_size[1])
-    if _device_kind(events) == "cpu":
+    if device_kind(events) == "cpu":
         return counts_plain(events[:, 0], events[:, 1], events[:, 3], (h, w))
     g, _, n = events.shape
     out = torch.zeros((g, h, w, 2), dtype=torch.float32, device=events.device)

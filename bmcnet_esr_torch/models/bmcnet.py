@@ -12,7 +12,9 @@ the JAX package (and the reference):
   ``conv_fns = conv_fps`` (one module called at both sites);
 * the full model's state-slot rotation into the backbone (``bmcnet.py:135-140``);
 * zeros-HR as the initial ``o_hr`` (``init_state``);
-* ``pred`` cast back to the model dtype after the float32 bilinear skip.
+* ``pred`` cast back to the model dtype after the float32 bilinear skip;
+* the ``quant`` mode of the int8 serving path (``models/layers.py``),
+  threaded into every convolution.
 
 Module and parameter names are the reference state dict's canonical keys
 (``models/convert.py``), e.g. ``neuro.para_reschunk.norm_s.weight``.
@@ -20,18 +22,16 @@ Module and parameter names are the reference state dict's canonical keys
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bmcnet_esr_torch.models.layers import BIE, Conv, ParallelBlk, init_weights
+from bmcnet_esr_torch.models.layers import BIE, ParallelBlk, _conv, init_weights, quant_mode
 from bmcnet_esr_torch.ops.resize import upsample_bilinear
 
 Tensor = torch.Tensor
-
-QUANT_TODO = "int8 serving modes are not ported yet (ROADMAP.md Queue 1 item 6)"
 
 
 def _nchw(t: Tensor) -> Tensor:
@@ -46,18 +46,18 @@ class Backbone(nn.Module):
     """Two-stream fusion backbone (reference ``models/BMCNet.py:35-84``)."""
 
     def __init__(self, n_c: int, n_b: int, scale: int, repeat: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: Any = False):
         super().__init__()
-        s2, r = scale**2, repeat
+        s2, r, q = scale**2, repeat, quant
         self.n_b = n_b
-        self.conv_fpst = Conv(2 * r + n_c + s2, n_c, 3, dtype)  # tied: also conv_fnst
-        self.conv_fps = Conv(r + n_c, n_c, 3, dtype)            # tied: also conv_fns
-        self.conv_fs = Conv(3 * n_c + 2 * s2, n_c, 3, dtype)
-        self.para_reschunk = ParallelBlk(n_c, dtype)             # shared n_b times
-        self.conv_hs = Conv(n_c, n_c, 3, dtype)
-        self.conv_hp = Conv(n_c, n_c, 3, dtype)
-        self.conv_hn = Conv(n_c, n_c, 3, dtype)
-        self.conv_o = Conv(2 * n_c, 2 * s2, 3, dtype)
+        self.conv_fpst = _conv(2 * r + n_c + s2, n_c, 3, dtype, q)  # tied: also conv_fnst
+        self.conv_fps = _conv(r + n_c, n_c, 3, dtype, q)            # tied: also conv_fns
+        self.conv_fs = _conv(3 * n_c + 2 * s2, n_c, 3, dtype, q)
+        self.para_reschunk = ParallelBlk(n_c, dtype, q)              # shared n_b times
+        self.conv_hs = _conv(n_c, n_c, 3, dtype, q)
+        self.conv_hp = _conv(n_c, n_c, 3, dtype, q)
+        self.conv_hn = _conv(n_c, n_c, 3, dtype, q)
+        self.conv_o = _conv(2 * n_c, 2 * s2, 3, dtype, q)
         self.s2 = s2
 
     def forward(self, xs: Sequence[Tensor], hp: Tensor, hn: Tensor, hs: Tensor, o: Tensor):
@@ -92,15 +92,15 @@ class PlainBackbone(nn.Module):
     """Single-stream backbone (reference ``models/BMCNet_plain.py:3-33``)."""
 
     def __init__(self, n_c: int, n_b: int, scale: int, repeat: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: Any = False):
         super().__init__()
-        s2, r = scale**2, repeat
+        s2, r, q = scale**2, repeat, quant
         self.n_b = n_b
-        self.conv_f1 = Conv(2 * r + n_c + s2, n_c, 3, dtype)  # tied: also conv_f2
-        self.conv_fs = Conv(4 * r + n_c + 2 * s2, n_c, 3, dtype)
-        self.para_reschunk = BIE(n_c, dtype)                   # shared n_b times
-        self.conv_h = Conv(n_c, n_c, 3, dtype)
-        self.conv_o = Conv(2 * n_c, 2 * s2, 3, dtype)
+        self.conv_f1 = _conv(2 * r + n_c + s2, n_c, 3, dtype, q)  # tied: also conv_f2
+        self.conv_fs = _conv(4 * r + n_c + 2 * s2, n_c, 3, dtype, q)
+        self.para_reschunk = BIE(n_c, dtype, q)                    # shared n_b times
+        self.conv_h = _conv(n_c, n_c, 3, dtype, q)
+        self.conv_o = _conv(2 * n_c, 2 * s2, 3, dtype, q)
         self.s2 = s2
 
     def forward(self, x1: Tensor, x2: Tensor, h: Tensor, o: Tensor):
@@ -119,17 +119,17 @@ class PlainBackbone(nn.Module):
 
 
 class _Model(nn.Module):
-    """Shared shell: dtype, input split and the HR head."""
+    """Shared shell: dtype, quant mode, input split and the HR head."""
 
     n_states: int
 
     def __init__(self, scale: int, n_c: int, n_b: int, repeat: int, dtype, quant):
         super().__init__()
-        if quant:
-            raise NotImplementedError(f"quant={quant!r}: {QUANT_TODO}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        quant_mode(quant)  # an unknown mode raises here
         self.scale, self.n_c, self.n_b, self.repeat, self.dtype = scale, n_c, n_b, repeat, dtype
+        self.quant = quant
 
     def _split(self, x: Tensor):
         """``[B, 2, H, W, 2]`` -> float windows and per-polarity NCHW inputs."""
@@ -163,7 +163,7 @@ class BMCNet(_Model):
                  dtype: torch.dtype = torch.float32, quant=False,
                  generator: Optional[torch.Generator] = None):
         super().__init__(scale, n_c, n_b, repeat, dtype, quant)
-        self.neuro = Backbone(n_c, n_b, scale, repeat, dtype)
+        self.neuro = Backbone(n_c, n_b, scale, repeat, dtype, quant)
         if generator is not None:
             init_weights(self, generator)
 
@@ -194,7 +194,7 @@ class BMCNetPlain(_Model):
                  dtype: torch.dtype = torch.float32, quant=False,
                  generator: Optional[torch.Generator] = None):
         super().__init__(scale, n_c, n_b, repeat, dtype, quant)
-        self.neuro = PlainBackbone(n_c, n_b, scale, repeat, dtype)
+        self.neuro = PlainBackbone(n_c, n_b, scale, repeat, dtype, quant)
         if generator is not None:
             init_weights(self, generator)
 

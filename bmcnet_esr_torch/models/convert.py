@@ -8,7 +8,9 @@ the one shared module, and conv kernels stay OIHW.  So loading a reference
 checkpoint is: canonicalize every key, bit-check that all aliases of one
 tensor agree (``convert.py:76-121``), keep one copy.  ``params_from_jax``
 takes the JAX package's flax parameter tree (as numpy arrays) instead:
-HWIO kernels become OIHW and the norms' ``scale`` becomes ``weight``.
+HWIO kernels become OIHW and the norms' ``scale`` becomes ``weight``;
+``act_scales_from_jax`` carries its int8 ``quant`` collection (calibrated
+``act_scale`` leaves) over for ``models/quant.set_act_scales``.
 
 The unique parameter counts are 1,003,296 (plain) and 2,731,680 (full) at
 ``n_c=128, n_b=5, x4``.
@@ -91,6 +93,25 @@ def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out[".".join(path + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
 
     walk(params, [])
+    return out
+
+
+def act_scales_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``quant`` collection (``act_scale`` leaves of shape
+    ``[B, 1, 1, 1]``, ``[1, 1, 1, 1]`` or ``()``) -> per-lane scales by the
+    port's module names, for ``models/quant.set_act_scales``.  The module
+    paths of the two packages are the same names."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for name, child in node.items():
+            if isinstance(child, Mapping):
+                walk(child, path + [name])
+            elif name == "act_scale":
+                arr = np.array(child, np.float32).reshape(-1)
+                out[".".join(path)] = torch.from_numpy(arr)
+
+    walk(variables.get("quant", {}), [])
     return out
 
 

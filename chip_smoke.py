@@ -9,21 +9,31 @@ without the port's package beside it.  Phases, each of which raises on
 failure:
 
 1. card identity (``nvidia-smi`` name and power limit);
-2. build every CUDA kernel from ``bmcnet_esr_torch/csrc`` and hold each one
-   bit-exact against its plain PyTorch version at the main path's shapes and
-   on an adversarial window;
+2. build every CUDA kernel from ``bmcnet_esr_torch/csrc`` (one ``nvcc`` per
+   source, all at once) and hold each one bit-exact against its plain
+   PyTorch version: the rasterizer at the main path's chunk shapes and on an
+   adversarial window; ``quantize_act``, ``quant_matmul`` and
+   ``quant_conv3x3`` at every channel count of the int8 path at 45x80, one
+   and four lanes, in each input and output form, and on adversarial values
+   (exact half-steps of the scale, values past +-127 steps, a ``[1]`` scale
+   broadcast to three lanes, a 7x13 image);
 3. the released BMCNet_plain checkpoint (n_c=128, n_b=5, x4) on the card:
-   RMSE < 1e-3 against the reference rollout in ``tests/goldens``, and bf16
-   within rel-RMSE 5e-2 of float32;
+   RMSE < 1e-3 against the reference rollout in ``tests/goldens``, bf16 and
+   every int8 dtype within rel-RMSE 5e-2 of float32;
 4. the main path: chunked ``InferenceEngine`` rollouts of 64 windows at
-   45x80 -> 180x320 (2048 LR events per window), full BMCNet with seeded
-   random weights and the released plain checkpoint, float32 and bfloat16,
-   fed compact windows made with numpy; kernel launch counts are reset just
-   before and read just after; then the float32 engines' first windows are
-   rolled out again on the CPU and compared;
+   45x80 -> 180x320 (2048 LR events per window), fed compact windows made
+   with numpy: full BMCNet with seeded random weights in float32, bfloat16,
+   int8, int8_pall and int8_chainq, and the released plain checkpoint in
+   float32, bfloat16 and all seven int8 dtypes.  Every kernel's launch
+   count is reset just before each rollout and read just after; for the
+   int8 dtypes it must equal the count derived from the model's structure.
+   Then ``torch.profiler`` breakdowns, and the float32 engines' first
+   windows rolled out again on the CPU and compared;
 5. when ``h5py`` imports: ``infer_file`` and ``cli.infer`` on the fixture of
-   ``tests/goldens/infer_goldens.npz``, per-window MSEs against the goldens;
-6. a JSON line with each kernel's launches, error, times and bound.
+   ``tests/goldens/infer_goldens.npz``, per-window MSEs against the goldens,
+   and ``cli.infer --dtype int8_pall``;
+6. each kernel's time against its plain version, its bound and a library
+   call, at the main path's shapes, and a JSON line with all of it.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -39,9 +49,50 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data-sheet memory rate
+INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
 LR, GT, SCALE, N_LR = (45, 80), (180, 320), 4, 2048
-N_WINDOWS, CHUNK = 64, 32
+N_WINDOWS, CHUNK, CALIB_STEPS = 64, 32, 16
 GOLDEN_TOL = dict(rtol=1e-3, atol=2e-5)  # GPU conv summation order vs CPU goldens
+INT8_BOUND = 5e-2  # rel-RMSE of an int8 dtype against float32 (TestInt8Serving)
+FULL_INT8 = ("int8", "int8_pall", "int8_chainq")
+
+# The int8 kernels' shapes on the main path (n_c=128, n_b=5, x4, 45x80) with
+# their call sites per window of the full BMCNet, read off the model:
+# 3x3 convs (Cin, Cout): conv_fpst x2 at 2*3+128+16 = 150, conv_fps x2 at
+# 3+128 = 131, conv_fs x3 at 3*128+2*16 = 416, the 100 block convs and
+# conv_hs / conv_hp / conv_hn at 128, conv_o at 256 -> 32; 1x1 convs (K):
+# 15 BIE calls, each with convf1 x2 and unclustering at 256 and
+# clustering x2, v1 and v2 at 128.  The plain model adds conv_fs at
+# 4*3+128+2*16 = 172.
+FULL_CONV3 = {(150, 128): 2, (131, 128): 2, (416, 128): 3, (128, 128): 103, (256, 32): 1}
+PLAIN_CONV3 = {(150, 128): 2, (172, 128): 1, (128, 128): 21, (256, 32): 1}
+FULL_QMM = {256: 45, 128: 60}
+
+
+def site_counts(variant: str, n_b: int = 5):
+    """Call sites per forward, from the model's structure: (3x3 convs, 1x1
+    convs, ResidualBlock calls).  Plain: conv_f1 x2, conv_fs, conv_h, conv_o
+    and n_b BIE calls (a ResidualBlock on each of two inputs, 7 1x1 convs).
+    Full: conv_fpst x2, conv_fps x2, conv_fs x3, conv_hs / hp / hn, conv_o
+    and n_b ParallelBlk calls (4 ResidualBlock calls and 3 BIE calls)."""
+    if variant == "plain":
+        return 5 + 4 * n_b, 7 * n_b, 2 * n_b
+    return 11 + 20 * n_b, 3 * 7 * n_b, (4 + 3 * 2) * n_b
+
+
+def expected_launches(variant: str, dtype: str, n_windows: int, calib_steps: int) -> dict:
+    """int8 kernel launches of one engine rollout: ``calib_steps`` forwards
+    on the dynamic path (every 3x3 conv, and every 1x1 conv in the p1x1
+    modes, through the kernels' int8-input form), then ``n_windows``
+    forwards on static scales."""
+    n3, n1, n_rb = site_counts(variant)
+    steps = calib_steps + n_windows
+    quantize = {"int8_pquant": n3, "int8_chainq": n3 - n_rb}.get(dtype, 0)
+    return {
+        "quantize_act": n_windows * quantize,
+        "quant_matmul": steps * n1 if dtype in ("int8_p1x1", "int8_pall") else 0,
+        "quant_conv3x3": steps * n3 if dtype.startswith("int8") else 0,
+    }
 
 
 def check(cond, msg: str) -> None:
@@ -50,7 +101,9 @@ def check(cond, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device ms per call, CUDA events around ``iters`` calls."""
+    """Mean ms per call, CUDA events around ``iters`` back-to-back calls.
+    Where a call's host work (Python, ctypes, small allocations) takes
+    longer than its kernels, this is the host's rate, not the device's."""
     import torch
 
     for _ in range(warmup):
@@ -63,6 +116,27 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time per call: the summed duration of every kernel,
+    copy and fill that ``iters`` calls put on the card (``torch.profiler``),
+    free of the host's launch overhead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / 1e3 / iters
 
 
 def random_windows(rng, g: int, n: int, hw, pad: int = 0):
@@ -98,12 +172,13 @@ def phase_kernels(dev):
     import numpy as np
     import torch
 
-    from bmcnet_esr_torch.kernels import _build, rasterize
+    from bmcnet_esr_torch.kernels import _build, qconv, qmm, quantize, rasterize
     from bmcnet_esr_torch.ops.batch import compact_events
 
+    sources = [m.SOURCE for m in (rasterize, quantize, qmm, qconv)]
     t0 = time.perf_counter()
-    _build.build_all([rasterize.SOURCE])
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {rasterize.SOURCE}")
+    _build.build_all(sources)
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {', '.join(sources)}")
 
     rng = np.random.default_rng(0)
     cases = {
@@ -143,8 +218,9 @@ def time_rasterizer(inputs) -> dict:
     for name in ("lr_chunk", "gt_chunk"):
         xy, p, (h, w) = inputs[name]
         g, _, n = xy.shape
-        ms = cuda_ms(lambda: rasterize.counts_from_compact(xy, p, (h, w)))
-        plain = cuda_ms(lambda: rasterize.counts_plain(xy[:, 0], xy[:, 1], p, (h, w)))
+        ms = device_ms(lambda: rasterize.counts_from_compact(xy, p, (h, w)))
+        ev = cuda_ms(lambda: rasterize.counts_from_compact(xy, p, (h, w)))
+        plain = device_ms(lambda: rasterize.counts_plain(xy[:, 0], xy[:, 1], p, (h, w)))
         # library yardstick: one index_put_ scatter into a fresh zero image,
         # with the flat indices and values computed beforehand (not timed)
         x, y = xy[:, 0].long(), xy[:, 1].long()
@@ -152,13 +228,186 @@ def time_rasterizer(inputs) -> dict:
         gi = torch.arange(g, device=xy.device)[:, None].expand(g, n)
         idx = ((gi * h + (h - 1 - y)) * w + x) * 2 + (p < 0).long()
         idx, val = idx[valid], (p[valid].float() ** 2)
-        lib = cuda_ms(lambda: torch.zeros(g * h * w * 2, device=xy.device)
-                      .index_put_((idx,), val, accumulate=True))
+        lib = device_ms(lambda: torch.zeros(g * h * w * 2, device=xy.device)
+                        .index_put_((idx,), val, accumulate=True))
         bound = (g * n * 5 + g * h * w * 2 * 4) / HBM_BYTES_PER_S * 1e3
-        print(f"rasterize timing {name}: kernel {ms:.5f} ms, plain {plain:.5f} ms, "
-              f"index_put_ {lib:.5f} ms, bound {bound:.5f} ms")
+        print(f"rasterize timing {name}: kernel {ms:.5f} ms on the device ({ev:.5f} ms per "
+              f"call back to back, host included), plain {plain:.5f} ms, index_put_ "
+              f"{lib:.5f} ms, bound {bound:.5f} ms")
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
             out[k] += v
+    return out
+
+
+def phase_int8_kernels(dev) -> dict:
+    """quantize_act, quant_matmul and quant_conv3x3 bit-exact (int8 and
+    bf16 outputs alike) against their plain versions on the card; returns
+    the largest |difference| of each (0 when it passes)."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.kernels import qconv, qmm, quantize
+
+    rng = np.random.default_rng(2)
+    err = {"quantize_act": 0.0, "quant_matmul": 0.0, "quant_conv3x3": 0.0}
+    cases = {k: 0 for k in err}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{name} on {what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+        d = float((got.float() - want.float()).abs().max())
+        err[name] = max(err[name], d)
+        check(d == 0.0, f"{name} differs from its plain version on {what}: max |d| {d}")
+        cases[name] += 1
+
+    def dev_t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev).to(dtype)
+
+    def lane_scales(b):
+        return dev_t(rng.uniform(3.0, 9.0, b) / 127.0)
+
+    def conv_case(x, cin, cout, sx, what):
+        wq, sw = qconv.quantize_weights3x3(dev_t(rng.normal(0, 0.05, (3, 3, cin, cout))))
+        bias, se = dev_t(rng.normal(0, 0.5, cout)), lane_scales(x.shape[0])
+        xq = quantize.quantize_plain(x, sx)
+        for xin in (x, xq):  # fused quantize, then the int8-input form
+            same("quant_conv3x3", qconv.quant_conv3x3(xin, wq, sw, sx, bias),
+                 qconv.qconv3x3_plain(xin, wq, sw, sx, bias), f"{what} {xin.dtype}")
+        same("quant_conv3x3",
+             qconv.quant_conv3x3(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True),
+             qconv.qconv3x3_plain(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True),
+             f"{what} int8 emit")
+
+    def qmm_case(x, k, sx, what):
+        wq, sw = qmm.quantize_weights(dev_t(rng.normal(0, 0.1, (k, 128))))
+        bias = dev_t(rng.normal(0, 0.5, 128))
+        for xin in (x, quantize.quantize_plain(x, sx)):
+            same("quant_matmul", qmm.quant_matmul(xin, wq, sw, sx, bias),
+                 qmm.qmm_plain(xin, wq, sw, sx, bias), f"{what} {xin.dtype}")
+
+    h, w = LR
+    cins = sorted({c for c, _ in [*FULL_CONV3, *PLAIN_CONV3]})
+    for b in (1, 4):
+        for c in cins:
+            x, sx = dev_t(rng.normal(0, 2.0, (b, h, w, c)), torch.bfloat16), lane_scales(b)
+            for relu in (False, True):
+                same("quantize_act", quantize.quantize_act(x, sx, relu),
+                     quantize.quantize_plain(x, sx, relu), f"B={b} C={c} relu={relu}")
+        for k in FULL_QMM:
+            x = dev_t(rng.normal(0, 2.0, (b, h * w, k)), torch.bfloat16)
+            qmm_case(x, k, lane_scales(b), f"B={b} M={h * w} K={k}")
+        for cin, cout in sorted({*FULL_CONV3, *PLAIN_CONV3}):
+            x = dev_t(rng.normal(0, 2.0, (b, h, w, cin)), torch.bfloat16)
+            conv_case(x, cin, cout, lane_scales(b), f"B={b} {h}x{w} {cin}->{cout}")
+
+    # adversarial: a [1] scale of 2**-4 shared by 3 lanes, a 7x13 image, and
+    # values at every half-step (k + 1/2) * sx up to +-127.5 steps (ties
+    # round to even), on whole steps, and far past +-127 steps (clipped)
+    sx1 = dev_t([2.0**-4])
+    vals = np.concatenate([(np.arange(-128, 128) + 0.5) / 16, np.arange(-127, 128) / 16,
+                           [300 / 16, -300 / 16, 2.0**14, -(2.0**14), 0.0]])
+    for dtype in (torch.bfloat16, torch.float32):
+        arr = np.resize(rng.permutation(vals), (3, 7, 13, 131)).astype(np.float32)
+        x = dev_t(arr, dtype)
+        check(torch.equal(x.float().cpu(), torch.from_numpy(arr)), f"adversarial {dtype} inexact")
+        for relu in (False, True):
+            same("quantize_act", quantize.quantize_act(x, sx1, relu),
+                 quantize.quantize_plain(x, sx1, relu), f"adversarial {dtype} relu={relu}")
+        qmm_case(x.reshape(3, 7 * 13, 131), 131, sx1, f"adversarial {dtype}")
+        conv_case(x, 131, 32, sx1, f"adversarial {dtype} 7x13")
+    print("int8 kernels bit-exact against their plain versions on the card: "
+          + ", ".join(f"{k} {n} cases" for k, n in cases.items()))
+    return err
+
+
+def time_int8(dev) -> dict:
+    """Time of each int8 kernel per window of the full BMCNet (n_c=128, n_b=5,
+    x4, 45x80): each main-path shape timed alone (device time, one lane),
+    weighted by its call sites.  ``quant_conv3x3`` and ``quant_matmul`` in
+    their fused form (int8_pall), ``quantize_act`` in front of every 3x3
+    conv (int8_pquant).  The bound is the larger of the bytes over 3.35 TB/s
+    and the int8 operations over 1,979 TOP/s."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bmcnet_esr_torch.kernels import qconv, qmm, quantize
+
+    rng = np.random.default_rng(4)
+    hw = LR[0] * LR[1]
+
+    def dev_t(shape, sd, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(0, sd, shape).astype(np.float32)).to(dev).to(dtype)
+
+    def bound(nbytes, ops):
+        """(bound ms, bytes ms, operations ms) of one call."""
+        b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        return max(b, o), b, o
+
+    out = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+               "bytes_ms": 0.0, "ops_ms": 0.0}
+           for n in ("quantize_act", "quant_matmul", "quant_conv3x3")}
+
+    def add(name, sites, ms, plain, bnd, lib=None):
+        o = out[name]
+        o["ms"] += sites * ms
+        o["plain_ms"] += sites * plain
+        for key, v in zip(("bound_ms", "bytes_ms", "ops_ms"), bnd):
+            o[key] += sites * v
+        if lib is not None:
+            o["library_ms"] = (o["library_ms"] or 0.0) + sites * lib
+
+    sx = torch.full((1,), 6.0 / 127.0, device=dev)
+    for (cin, cout), sites in FULL_CONV3.items():
+        x = dev_t((1, *LR, cin), 2.0, torch.bfloat16)
+        wq, sw = qconv.quantize_weights3x3(dev_t((3, 3, cin, cout), 0.05))
+        bias, packed = dev_t((cout,), 0.5), qconv.pack_weights3x3(wq)
+        ms = device_ms(lambda: qconv.quant_conv3x3(x, wq, sw, sx, bias, packed=packed))
+        ev = cuda_ms(lambda: qconv.quant_conv3x3(x, wq, sw, sx, bias, packed=packed))
+        xq = quantize.quantize_act(x, sx)
+        ms_q = device_ms(lambda: qconv.quant_conv3x3(xq, wq, sw, sx, bias, packed=packed))
+        plain = device_ms(lambda: qconv.qconv3x3_plain(x, wq, sw, sx, bias), iters=5)
+        qms = device_ms(lambda: quantize.quantize_act(x, sx))
+        qplain = device_ms(lambda: quantize.quantize_plain(x, sx))
+        # dense yardstick: cuDNN's bf16 convolution of the same shape
+        xc = x.permute(0, 3, 1, 2)
+        wc = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        dense = device_ms(lambda: F.conv2d(xc, wc, padding=1))
+        bnd = bound(2 * hw * cin + 9 * cin * cout + 8 * cout + 4 + 2 * hw * cout,
+                    2 * hw * cout * 9 * cin)
+        qbnd = bound(3 * hw * cin, 0)
+        print(f"int8 timing quant_conv3x3 {cin}->{cout} x{sites}/window: fused {ms:.5f} ms "
+              f"({ev:.5f} ms per call back to back, host included), int8-input {ms_q:.5f} ms, "
+              f"plain {plain:.5f} ms, bound {bnd[0]:.5f} ms, "
+              f"cuDNN bf16 conv (yardstick) {dense:.5f} ms; quantize_act C={cin}: "
+              f"{qms:.5f} ms, plain {qplain:.5f} ms, bound {qbnd[0]:.5f} ms")
+        if (cin, cout) == (128, 128):
+            # the same call on an input that is half zeros, as after a ReLU
+            xr = torch.relu(x)
+            relu_ms = device_ms(lambda: qconv.quant_conv3x3(xr, wq, sw, sx, bias, packed=packed))
+            print(f"int8 timing quant_conv3x3 128->128 fused on a ReLU output: {relu_ms:.5f} ms")
+        add("quant_conv3x3", sites, ms, plain, bnd)
+        add("quantize_act", sites, qms, qplain, qbnd)
+    for k, sites in FULL_QMM.items():
+        x = dev_t((1, hw, k), 2.0, torch.bfloat16)
+        wq, sw = qmm.quantize_weights(dev_t((k, 128), 0.1))
+        bias, packed = dev_t((128,), 0.5), qmm.pack_weights(wq)
+        ms = device_ms(lambda: qmm.quant_matmul(x, wq, sw, sx, bias, packed=packed))
+        plain = device_ms(lambda: qmm.qmm_plain(x, wq, sw, sx, bias), iters=5)
+        xq2 = quantize.quantize_act(x.view(1, 1, hw, k), sx).view(hw, k)
+        # library yardstick: the int8 product alone, on the pre-quantized operand
+        lib = device_ms(lambda: torch._int_mm(xq2, wq))
+        bnd = bound(2 * hw * k + k * 128 + 8 * 128 + 4 + 2 * hw * 128, 2 * hw * k * 128)
+        print(f"int8 timing quant_matmul M={hw} K={k} N=128 x{sites}/window: {ms:.5f} ms, "
+              f"plain {plain:.5f} ms, torch._int_mm (product alone) {lib:.5f} ms, "
+              f"bound {bnd[0]:.5f} ms")
+        add("quant_matmul", sites, ms, plain, bnd, lib)
+    for name, o in out.items():
+        o["bound_by"] = "bytes" if o.pop("bytes_ms") >= o.pop("ops_ms") else "operations"
+        print(f"int8 timing {name} per window of the full model: {o['ms']:.5f} ms, plain "
+              f"{o['plain_ms']:.5f} ms, bound {o['bound_ms']:.5f} ms ({o['bound_by']}), "
+              f"library {o['library_ms']}")
     return out
 
 
@@ -195,6 +444,28 @@ def phase_checkpoint(dev):
     print(f"released checkpoint: fp32 RMSE {rmse:.3e} vs reference (budget 1e-3); "
           f"bf16 rel-RMSE {rel:.3e} vs fp32 (bound 5e-2)")
 
+    # every int8 dtype, static scales calibrated on the same windows, and
+    # the default dtype once more on dynamic scales
+    from bmcnet_esr_torch.inference.engine import INT8_DTYPES
+    from bmcnet_esr_torch.models import calibrate_act_scales
+
+    xs = torch.from_numpy(x).to(dev)
+    for name, mode in [*INT8_DTYPES.items(), ("int8 (dynamic scales)", True)]:
+        m = BMCNetPlain(scale=4, n_c=128, n_b=5, dtype=torch.bfloat16, quant=mode)
+        m.load_state_dict(sd)
+        m = m.to(dev, memory_format=torch.channels_last).eval()
+        st = m.init_state(x.shape[1], x.shape[3], x.shape[4])
+        out = []
+        with torch.inference_mode():
+            if "dynamic" not in name:
+                calibrate_act_scales(m, xs, st)
+            for xi in xs:
+                st = m(xi, *st)
+                out.append(st[-1].float().cpu().numpy())
+        rel8 = float(np.sqrt(np.mean((np.stack(out) - preds[torch.float32]) ** 2))) / scale
+        check(rel8 < INT8_BOUND, f"released checkpoint {name}: rel-RMSE {rel8} >= {INT8_BOUND}")
+        print(f"released checkpoint {name}: rel-RMSE {rel8:.3e} vs fp32 (bound {INT8_BOUND})")
+
 
 def seeded_full_weights(model, seed: int = 0):
     """Seeded numpy weights in the shape of ``model``'s state dict."""
@@ -214,17 +485,25 @@ def seeded_full_weights(model, seed: int = 0):
     return sd
 
 
-def phase_rollouts(dev, card: str) -> int:
-    """The main path; returns the rasterizer launches made by it."""
+KERNEL_MODULES = ("rasterize", "quantize", "qmm", "qconv")
+KERNEL_NAMES = {"rasterize": "rasterize_counts", "quantize": "quantize_act",
+                "qmm": "quant_matmul", "qconv": "quant_conv3x3"}
+
+
+def phase_rollouts(dev, card: str) -> dict:
+    """The main path; returns each kernel's launches made by it."""
+    import importlib
+
     import numpy as np
     import torch
 
     from bmcnet_esr_torch.data import DatasetConfig
     from bmcnet_esr_torch.inference import InferenceEngine
-    from bmcnet_esr_torch.kernels import rasterize
+    from bmcnet_esr_torch.inference.engine import DTYPES, INT8_DTYPES
     from bmcnet_esr_torch.models import BMCNet, BMCNetPlain, load_checkpoint
     from bmcnet_esr_torch.ops.batch import compact_events
 
+    mods = {n: importlib.import_module(f"bmcnet_esr_torch.kernels.{n}") for n in KERNEL_MODULES}
     rng = np.random.default_rng(1)
     inp = compact_events(random_windows(rng, N_WINDOWS + 1, N_LR, LR)[:, None])
     gt = compact_events(random_windows(rng, N_WINDOWS, SCALE**2 * N_LR, GT)[:, None])
@@ -235,52 +514,68 @@ def phase_rollouts(dev, card: str) -> int:
 
     plain_sd = load_checkpoint(os.path.join(ROOT, "tests", "goldens", "plain_nfs_x4_ckpt.npz"))
     full_sd = seeded_full_weights(BMCNet(scale=SCALE))
+    configs = [("full", BMCNet, full_sd, d) for d in ("float32", "bfloat16", *FULL_INT8)]
+    configs += [("plain", BMCNetPlain, plain_sd, d) for d in ("float32", "bfloat16", *INT8_DTYPES)]
     engines = []
-    for variant, cls, sd in (("full", BMCNet, full_sd), ("plain", BMCNetPlain, plain_sd)):
-        for dt in (torch.float32, torch.bfloat16):
-            m = cls(scale=SCALE, n_c=128, n_b=5, dtype=dt)
-            m.load_state_dict(sd)
-            eng = InferenceEngine(m, DatasetConfig(scale=SCALE), chunk_size=CHUNK,
-                                  visualize=False, device=dev)
-            eng.infer_windows(load_chunk, 4, LR, GT)  # warm-up, outside the count
-            engines.append((f"{variant} {str(dt).split('.')[-1]}", eng))
+    for variant, cls, sd, dtype in configs:
+        m = cls(scale=SCALE, n_c=128, n_b=5, dtype=DTYPES.get(dtype, torch.bfloat16),
+                quant=INT8_DTYPES.get(dtype, False))
+        m.load_state_dict(sd)
+        eng = InferenceEngine(m, DatasetConfig(scale=SCALE), chunk_size=CHUNK,
+                              visualize=False, device=dev)
+        eng.infer_windows(load_chunk, 4, LR, GT)  # warm-up, outside the counts
+        engines.append((variant, dtype, eng))
 
     torch.cuda.synchronize()
-    rasterize.launches = 0
+    totals = {KERNEL_NAMES[n]: 0 for n in KERNEL_MODULES}
     results = []
     # each configuration twice, the second pass in reverse order, so that a
     # drift over the run shows as a spread between the two passes
-    for name, eng in engines + engines[::-1]:
+    for variant, dtype, eng in engines + engines[::-1]:
+        for mod in mods.values():
+            mod.launches = 0
         t0 = time.perf_counter()
         r = eng.infer_windows(load_chunk, N_WINDOWS, LR, GT, return_per_window=True)
         wall = time.perf_counter() - t0
-        results.append((name, r, wall))
-    launches = rasterize.launches
+        got = {KERNEL_NAMES[n]: mod.launches for n, mod in mods.items()}
+        want = expected_launches(variant, dtype, N_WINDOWS, min(CALIB_STEPS, CHUNK, N_WINDOWS))
+        check(got["rasterize_counts"] > 0, f"{variant} {dtype}: the rasterizer never launched")
+        for k, v in want.items():
+            check(got[k] == v, f"{variant} {dtype}: {got[k]} {k} launches, the model gives {v}")
+        for k, v in got.items():
+            totals[k] += v
+        results.append((variant, dtype, r, wall, got, want))
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader",
          "-i", "0"], capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"after the rollouts: SM clock, max SM clock, power draw = {clocks}")
-    for name, r, wall in results:
+    for variant, dtype, r, wall, got, want in results:
+        name = f"{variant} {dtype}"
         esr = r["per_window"]["esr_mse"]
         check(len(esr) == N_WINDOWS and np.all(np.isfinite(esr)), f"{name}: bad esr_mse")
         check(np.all(np.isfinite(r["per_window"]["bicubic_mse"])), f"{name}: bad bicubic_mse")
+        counts = ", ".join(f"{k} {got[k]} (model {want[k]})" for k in want)
         print(f"rollout {name}: {N_WINDOWS} windows {LR} -> {GT}, "
               f"{wall / N_WINDOWS * 1e3:.3f} ms/window, {N_WINDOWS / wall:.2f} windows/s "
               f"(engine time {r['time']:.3f} ms/window, {r['macs']:.1f} MMAC/window, "
-              f"mean esr_mse {r['esr_mse']:.5f}) on {card}")
-    print(f"rasterizer launches on the main path: {launches}")
-    check(launches > 0, "the main path never launched the rasterizer")
-    for name, eng in engines:
-        profile_rollout(name, eng, load_chunk, min(16, N_WINDOWS))
+              f"mean esr_mse {r['esr_mse']:.5f}) on {card}; launches: rasterize_counts "
+              f"{got['rasterize_counts']}, {counts}")
+    for variant in ("full", "plain"):
+        macs = {round(r["macs"], 1) for v, d, r, *_ in results if v == variant}
+        check(len(macs) == 1, f"{variant}: MMAC/window differs between dtypes: {macs}")
+    print(f"kernel launches on the main path: {totals}")
+    for variant, dtype, eng in engines:
+        if dtype in ("float32", "bfloat16", "int8", "int8_pall"):
+            profile_rollout(f"{variant} {dtype}", eng, load_chunk, min(16, N_WINDOWS))
 
     # the same engine on the CPU (plain rasterizer, CPU convolutions) over
     # the first windows: per-window MSEs agree to float32 reassociation
-    for (name, eng), (_, r, _) in zip(engines, results):  # the first pass
-        if not name.endswith("float32"):
+    for (variant, dtype, eng), (*_, r, _w, _g, _e) in zip(engines, results):  # the first pass
+        if dtype != "float32":
             continue
-        n = min(8 if name.startswith("plain") else 4, N_WINDOWS)
+        n = min(8 if variant == "plain" else 4, N_WINDOWS)
         cpu = InferenceEngine(eng.model.cpu(), DatasetConfig(scale=SCALE), chunk_size=CHUNK,
                               visualize=False, device="cpu")
         ref = cpu.infer_windows(load_chunk, n, LR, GT, return_per_window=True)["per_window"]
@@ -288,22 +583,25 @@ def phase_rollouts(dev, card: str) -> int:
             got = r["per_window"][key][:n]
             np.testing.assert_allclose(got, ref[key], rtol=1e-4, atol=1e-6)
         d = float(np.abs(r["per_window"]["esr_mse"][:n] / ref["esr_mse"] - 1).max())
-        print(f"engine {name}: CUDA vs CPU on the first {n} windows, max rel |d| esr_mse {d:.2e}"
-              " (rtol 1e-4)")
-    return launches
+        print(f"engine {variant} {dtype}: CUDA vs CPU on the first {n} windows, max rel |d| "
+              f"esr_mse {d:.2e} (rtol 1e-4)")
+    return totals
 
 
-def profile_rollout(name: str, eng, load_chunk, n: int) -> None:
-    """Where the time of a rollout goes: wall time per window against the
-    device's busy time (sum of kernel times) under ``torch.profiler``, and
-    the kernels that take most of it.  The profiler slows the host, so the
-    wall time here is above the unprofiled rollout's."""
+def _profiled(fn, n: int, name: str, what: str) -> None:
+    """Run ``fn`` under ``torch.profiler`` and print, per ``what`` (of which
+    ``fn`` does ``n``): wall time, the device's busy time (sum of kernel
+    times), kernel launches, and the kernels that take most of the time.
+    The profiler slows the host, so the wall time is above an unprofiled
+    run's."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.infer_windows(load_chunk, n, LR, GT)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     # kernel rows only: operator rows repeat the time of the kernels they launch
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -311,10 +609,36 @@ def profile_rollout(name: str, eng, load_chunk, n: int) -> None:
     busy_ms = sum(dev_time(e) for e in rows) / 1e3 / n
     check(busy_ms > 0, f"profile {name}: the trace shows no device time")
     top = sorted(rows, key=dev_time, reverse=True)[:4]
-    print(f"profile {name}: wall {wall_ms:.3f} ms/window, device busy {busy_ms:.3f} ms/window "
-          f"(idle share {1 - busy_ms / wall_ms:.1%}, {len(rows)} kernel kinds); top kernels: "
+    print(f"profile {name}: wall {wall_ms:.3f} ms/{what}, device busy {busy_ms:.3f} ms/{what} "
+          f"(idle share {1 - busy_ms / wall_ms:.1%}, {sum(e.count for e in rows) / n:.0f} "
+          f"kernel launches/{what}, {len(rows)} kernel kinds); top kernels: "
           + "; ".join(f"{e.key[:60]} {dev_time(e) / 1e3 / n:.3f} ms x{e.count / n:.1f}"
                       for e in top))
+
+
+def profile_rollout(name: str, eng, load_chunk, n: int) -> None:
+    """Where the time of a rollout goes, per window; for an int8 engine also
+    its calibration, per calibration step."""
+    import torch
+
+    from bmcnet_esr_torch.inference import InferenceEngine
+    from bmcnet_esr_torch.inference.engine import _calib_pairs
+    from bmcnet_esr_torch.models import calibrate_act_scales
+
+    if eng.model.quant:
+        (xy, p), _ = load_chunk(0, CALIB_STEPS)
+        pairs = _calib_pairs(torch.from_numpy(xy).to(eng.device),
+                             torch.from_numpy(p).to(eng.device), LR)
+        with torch.inference_mode():
+            _profiled(lambda: calibrate_act_scales(
+                eng.model, pairs, eng.model.init_state(1, *LR, device=eng.device)),
+                len(pairs), f"{name} calibration", "step")
+        # a fresh engine keeps the scales just calibrated (it takes them for
+        # the caller's), so the rollout's profile holds no calibration
+        eng = InferenceEngine(eng.model, eng.config, chunk_size=eng.chunk_size,
+                              visualize=False, device=eng.device)
+        eng.infer_windows(load_chunk, 2, LR, GT)
+    _profiled(lambda: eng.infer_windows(load_chunk, n, LR, GT), n, name, "window")
 
 
 def phase_h5(dev) -> str:
@@ -364,7 +688,17 @@ def phase_h5(dev) -> str:
         want = float(np.mean(r["per_window"]["esr_mse"]))
         check(abs(mean - want) <= 1e-5 * abs(want), f"cli.infer mean esr {mean} vs {want}")
         print(f"cli.infer on the h5 fixture: mean esr_mse {mean:.6f} (infer_file {want:.6f})")
-    return "h5 (infer_file + cli.infer)"
+        out8 = cli_infer.main([
+            "--model_path", ckpt, "--variant", "plain", "--data_path", path,
+            "--output_path", os.path.join(tmp, "out8"), "--scale", str(scale),
+            "--ori_scale", "down4", "--window", str(window), "--sliding_window", str(sliding),
+            "--seql", str(seql), "--chunk_size", "16", "--need_gt_events", "--no_images",
+            "--device", "cuda", "--dtype", "int8_pall",
+        ])
+        mean8 = out8["mean"]["esr_mse"]
+        check(abs(mean8 - want) <= 5e-2 * abs(want), f"cli.infer int8_pall mean esr {mean8}")
+        print(f"cli.infer --dtype int8_pall on the h5 fixture: mean esr_mse {mean8:.6f}")
+    return "h5 (infer_file + cli.infer, float32 and int8_pall)"
 
 
 def main() -> int:
@@ -391,18 +725,20 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     err, inputs = phase_kernels(dev)
+    errs8 = phase_int8_kernels(dev)
     phase_checkpoint(dev)
     launches = phase_rollouts(dev, card)
     route = phase_h5(dev)
     print(f"parity route: {route}")
     t = time_rasterizer(inputs)
+    t8 = time_int8(dev)
 
     kernels = [{
         "name": "rasterize_counts",
         "route": "cuda",
         "source": "bmcnet_esr_torch/csrc/rasterize.cu",
         "replaces": "bmcnet_esr_tpu/ops/pallas/rasterize.py:44",
-        "launches": launches,
+        "launches": launches["rasterize_counts"],
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -410,6 +746,23 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
     }]
+    for name, src, body in (("quantize_act", "quantize.cu", "quantize.py:49"),
+                            ("quant_matmul", "qmm.cu", "qmm.py:65"),
+                            ("quant_conv3x3", "qconv.cu", "qconv.py:101")):
+        o = t8[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"bmcnet_esr_torch/csrc/{src}",
+            "replaces": f"bmcnet_esr_tpu/ops/pallas/{body}",
+            "launches": launches[name],
+            "max_abs_err": errs8[name],
+            "ms": o["ms"],
+            "plain_ms": o["plain_ms"],
+            "bound_ms": o["bound_ms"],
+            "bound_by": o["bound_by"],
+            "library_ms": o["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""GPU tests of bmcnet_esr_torch: the CUDA rasterizer against its plain
-version, and the engine and model on the card against the CPU.
+"""GPU tests of bmcnet_esr_torch: the CUDA kernels (rasterizer, quantize_act,
+quant_matmul, quant_conv3x3) against their plain versions, and the engine
+and models on the card against the CPU and batched against solo.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -15,7 +16,7 @@ import torch
 
 from bmcnet_esr_torch.data import DatasetConfig
 from bmcnet_esr_torch.inference import InferenceEngine, load_model_for_inference
-from bmcnet_esr_torch.kernels import rasterize
+from bmcnet_esr_torch.kernels import qconv, qmm, quantize, rasterize
 from bmcnet_esr_torch.models import BMCNet
 from bmcnet_esr_torch.ops.batch import batch_counts_from_compact, compact_events
 from bmcnet_esr_torch.utils import strict_fp32
@@ -119,3 +120,116 @@ def test_batched_model_equals_solo_on_cuda(cuda):
             worst = max(worst, float((a[j : j + 1] - b).abs().max() / b.abs().max()))
     print(f"batched vs solo on {torch.cuda.get_device_name(0)}: max |d| / max |x| = {worst:.3e}")
     assert worst < 1e-5
+
+
+def _act(rng, shape, dev, dtype=torch.bfloat16):
+    return torch.from_numpy(rng.normal(0, 2.0, shape).astype(np.float32)).to(dev).to(dtype)
+
+
+def _scales(rng, b, dev):
+    return torch.from_numpy((rng.uniform(3.0, 9.0, b) / 127).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("b,hw,c", [(1, (45, 80), 131), (4, (45, 80), 128), (3, (7, 13), 416)])
+def test_quantize_act_bit_exact_against_plain(cuda, b, hw, c):
+    rng = np.random.default_rng(1)
+    x, sx = _act(rng, (b, *hw, c), cuda), _scales(rng, b, cuda)
+    for relu in (False, True):
+        before = quantize.launches
+        got = quantize.quantize_act(x, sx, relu)
+        assert quantize.launches == before + 1
+        assert torch.equal(got, quantize.quantize_plain(x, sx, relu))
+    assert torch.equal(quantize.quantize_act(x.float(), sx), quantize.quantize_plain(x, sx))
+
+
+@pytest.mark.parametrize("b,m,k", [(1, 3600, 128), (4, 3600, 256), (2, 91, 131)])
+def test_quant_matmul_bit_exact_against_plain(cuda, b, m, k):
+    rng = np.random.default_rng(2)
+    x, sx = _act(rng, (b, m, k), cuda), _scales(rng, b, cuda)
+    wq, sw = qmm.quantize_weights(_act(rng, (k, 128), cuda, torch.float32) * 0.05)
+    bias = _act(rng, (128,), cuda, torch.float32)
+    for xin in (x, quantize.quantize_plain(x, sx)):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = qmm.quant_matmul(xin, wq, sw, sx, bias, out_dtype=out_dtype)
+            assert torch.equal(got, qmm.qmm_plain(xin, wq, sw, sx, bias, out_dtype))
+
+
+@pytest.mark.parametrize("b,hw,cin,cout", [
+    (1, (45, 80), 150, 128), (4, (45, 80), 416, 128), (2, (45, 80), 256, 32), (3, (7, 13), 131, 8),
+])
+def test_quant_conv3x3_bit_exact_against_plain(cuda, b, hw, cin, cout):
+    rng = np.random.default_rng(3)
+    x, sx, se = _act(rng, (b, *hw, cin), cuda), _scales(rng, b, cuda), _scales(rng, b, cuda)
+    wq, sw = qconv.quantize_weights3x3(_act(rng, (3, 3, cin, cout), cuda, torch.float32) * 0.02)
+    bias = _act(rng, (cout,), cuda, torch.float32)
+    xq = quantize.quantize_plain(x, sx)
+    for xin in (x, x.float(), xq):
+        got = qconv.quant_conv3x3(xin, wq, sw, sx, bias)
+        assert torch.equal(got, qconv.qconv3x3_plain(xin, wq, sw, sx, bias))
+    got = qconv.quant_conv3x3(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True)
+    assert torch.equal(got, qconv.qconv3x3_plain(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True))
+
+
+def test_int8_kernels_batched_equal_solo_launches(cuda):
+    """A row of the output depends on its own lane only: B lanes in one
+    launch equal B launches of one lane, bit for bit."""
+    rng = np.random.default_rng(4)
+    b = 4
+    x, sx = _act(rng, (b, 45, 80, 128), cuda), _scales(rng, b, cuda)
+    wq, sw = qconv.quantize_weights3x3(_act(rng, (3, 3, 128, 128), cuda, torch.float32) * 0.02)
+    wq1, sw1 = qmm.quantize_weights(_act(rng, (128, 128), cuda, torch.float32) * 0.05)
+    bias = _act(rng, (128,), cuda, torch.float32)
+    conv = qconv.quant_conv3x3(x, wq, sw, sx, bias)
+    mm = qmm.quant_matmul(x.view(b, -1, 128), wq1, sw1, sx, bias)
+    for i in range(b):
+        assert torch.equal(conv[i : i + 1], qconv.quant_conv3x3(x[i : i + 1], wq, sw, sx[i : i + 1], bias))
+        assert torch.equal(mm[i : i + 1], qmm.quant_matmul(x[i : i + 1].view(1, -1, 128), wq1, sw1,
+                                                           sx[i : i + 1], bias))
+
+
+def test_int8_kernels_refuse_nchw_memory(cuda):
+    """The kernels take NHWC-contiguous data and never reinterpret NCHW."""
+    x = torch.zeros((1, 8, 5, 6), device=cuda).permute(0, 2, 3, 1)  # an NCHW tensor seen as NHWC
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize.quantize_act(x, 1.0)
+    wq, sw = qconv.quantize_weights3x3(torch.ones((3, 3, 8, 4), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv.quant_conv3x3(x, wq, sw, 1.0, torch.zeros(4, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int8_pall"])
+def test_int8_batched_model_equals_solo_on_cuda(cuda, dtype):
+    """Two streams in one batch against each alone, 3 steps of the full
+    model at full width on dynamic per-lane scales.  The int8 convolutions
+    are per lane by construction (test above), so what differs is the float
+    work around them (cuBLAS attention and resize products, reductions and,
+    in int8, cuDNN's bf16 1x1 convs, whose algorithms depend on the batch),
+    and a bf16 rounding that moves an activation across a quantization step
+    then spreads through the recurrence.  Measured on an H100: max |d| /
+    max |x| 2.4e-2 (int8) and 5.5e-2 (int8_pall).  Bounds: rel-RMSE below
+    1e-2 (a fifth of the int8 serving bound against float32) and max |d| /
+    max |x| below 0.2 (both printed)."""
+    from bmcnet_esr_torch.inference.engine import INT8_DTYPES
+
+    f32 = BMCNet(scale=4, generator=torch.Generator().manual_seed(0))
+    m = BMCNet(scale=4, dtype=torch.bfloat16, quant=INT8_DTYPES[dtype])
+    m.load_state_dict(f32.state_dict())
+    m = m.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.from_numpy(
+        np.random.default_rng(7).poisson(0.3, (3, 2, 2, 45, 80, 2)).astype(np.float32)
+    ).to(cuda)
+    with torch.inference_mode():
+        st2 = m.init_state(2, 45, 80)
+        st1 = [m.init_state(1, 45, 80) for _ in range(2)]
+        for xs in x:
+            st2 = m(xs, *st2)
+            st1 = [m(xs[j : j + 1], *st1[j]) for j in range(2)]
+    worst = rel = 0.0
+    for j in range(2):
+        for a, b in zip(st2, st1[j]):
+            d, scale = a[j : j + 1].float() - b.float(), float(b.float().abs().max())
+            worst = max(worst, float(d.abs().max()) / scale)
+            rel = max(rel, float(d.square().mean().sqrt()) / scale)
+    print(f"{dtype} batched vs solo on {torch.cuda.get_device_name(0)}: "
+          f"max |d| / max |x| = {worst:.3e}, rel-RMSE {rel:.3e}")
+    assert rel < 1e-2 and worst < 0.2

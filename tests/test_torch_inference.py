@@ -213,8 +213,23 @@ def test_cli_writes_results_and_pngs(tmp_path):
         assert len(os.listdir(root / "event_img" / stream)) == 14  # 15 windows, 14 pairs
 
 
+@pytest.mark.parametrize("dtype", ["int8", "int8_pall"])
+def test_cli_int8_dtypes_run(dtype, files, g, tmp_path):
+    """``cli.infer --dtype int8*`` on the CPU with the released checkpoint:
+    the int8 model calibrates on the file's first windows, and its mean
+    esr_mse stays within 5 % of the float32 run's."""
+    scale, window, sliding, _, seql, _, _ = (int(v) for v in g["meta"])
+    common = ["--model_path", CKPT, "--variant", "plain", "--scale", str(scale),
+              "--ori_scale", "down4", "--window", str(window), "--sliding_window", str(sliding),
+              "--seql", str(seql), "--need_gt_events", "--no_images", "--device", "cpu",
+              "--chunk_size", "8", "--data_path", files[1]]
+    f32 = cli_infer.main(common + ["--output_path", str(tmp_path / "f32")])["mean"]["esr_mse"]
+    q = cli_infer.main(common + ["--output_path", str(tmp_path / dtype), "--dtype", dtype])
+    assert np.isfinite(q["mean"]["esr_mse"]) and q["mean"]["esr_mse"] == pytest.approx(f32, rel=5e-2)
+    assert (tmp_path / dtype / "inference_all.yml").is_file()
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--dtype", "int8_pall"], "item 6"),
     (["--mesh_devices", "2"], "item 8"),
     (["--ema"], "item 7"),
 ])
@@ -229,6 +244,15 @@ def test_cuda_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_model_for_inference(CKPT, 4, variant="plain")
+
+
+def test_cli_int8_on_cuda_raises_without_cuda(files):
+    """``--dtype int8_pall --device cuda`` never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_infer.main(["--model_path", CKPT, "--variant", "plain", "--data_path", files[0],
+                        "--output_path", "x", "--dtype", "int8_pall", "--device", "cuda"])
 
 
 def test_yaml_logger_writes_plain_types(tmp_path):

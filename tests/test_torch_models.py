@@ -262,10 +262,24 @@ def test_tied_alias_mismatch_is_rejected():
 def test_unported_options_name_their_roadmap_item(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         load_checkpoint(str(tmp_path))  # an Orbax train-state directory
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        BMCNetPlain(scale=2, n_c=NC, n_b=1, quant="pconv")
     with pytest.raises(ValueError, match="bfloat16"):
         BMCNet(scale=2, n_c=NC, n_b=1, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("quant", jlayers.QUANT_MODES)
+def test_quant_modes_build_and_run(quant):
+    """Every quant mode of the JAX package builds, loads the float model's
+    state dict unchanged and runs a forward step (plain versions on the
+    CPU) to finite outputs of the float model's shapes."""
+    f32 = BMCNet(scale=2, n_c=NC, n_b=1, generator=torch.Generator().manual_seed(0))
+    q = BMCNet(scale=2, n_c=NC, n_b=1, dtype=torch.bfloat16, quant=quant)
+    q.load_state_dict(f32.state_dict(), strict=True)
+    x = torch.from_numpy(np.random.default_rng(0).poisson(1.0, (1, 2, 6, 5, 2)).astype(np.float32))
+    with torch.inference_mode():
+        outs = q(x, *q.init_state(1, 6, 5))
+        want = f32(x, *f32.init_state(1, 6, 5))
+    for o, w in zip(outs, want):
+        assert o.shape == w.shape and o.dtype == torch.bfloat16 and torch.isfinite(o).all()
 
 
 def test_generator_init_is_reproducible():
