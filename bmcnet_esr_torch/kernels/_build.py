@@ -2,7 +2,10 @@
 
 Each kernel source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` (Hopper) into ``bmcnet_esr_torch/_build/<hash>/``, where the hash
-covers the source text and the compiler flags, then loaded with ctypes.  A
+covers the source text, the headers (``csrc/*.cuh``) and the compiler flags,
+then loaded with ctypes.  The compiler's report (registers, shared memory
+and spills of each kernel, ``-Xptxas -v``) is kept beside the library as
+``<name>.log``.  A
 build happens at the first launch in a process, never at import, so the
 package imports on machines without a CUDA toolkit.  The library is written
 under a temporary name and renamed into place, so concurrent first launches
@@ -12,6 +15,7 @@ from several processes are safe.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -28,7 +32,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -66,8 +70,11 @@ def build_all(sources: Sequence[str]) -> None:
 
 def _build_and_load(source: str) -> ctypes.CDLL:
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    sha = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()[:16]
     out_dir = os.path.join(BUILD_DIR, digest)
     lib = os.path.join(out_dir, os.path.splitext(source)[0] + ".so")
     if not os.path.isfile(lib):
@@ -79,6 +86,8 @@ def _build_and_load(source: str) -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) for {source}:\n{proc.stderr}"
             )
+        with open(os.path.splitext(lib)[0] + ".log", "w") as f:
+            f.write(proc.stderr)
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)
 

@@ -10,8 +10,10 @@ with int32 accumulation and a float32 epilogue.  ``x`` is bf16 / float32 and
 quantized at the per-lane scale ``sx`` inside the kernel (the fused Pallas
 route), or int8 already quantized at ``sx`` (the dynamic-scale route of
 ``QuantConv``).  The kernel is ``csrc/qmm.cu``; it takes the weights packed
-as ``[N, K_pad]`` (:func:`pack_weights`), which callers that reuse them pass
-in ``packed``.
+by :func:`pack_weights` (per block of 128 output channels, the ``[128, K + 16]``
+slab the kernel copies into shared memory in one piece), which callers that
+reuse them pass in ``packed``.  :func:`matmul_plan` is the launch plan the
+wrapper hands to the C entry point.
 
 Routing is by the device of the input: CPU tensors go through
 :func:`qmm_plain`, CUDA tensors through the kernel (or an exception).
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +39,13 @@ from bmcnet_esr_torch.kernels.quantize import (
 )
 
 SOURCE = "qmm.cu"
-K_STEP = 32  # the kernel's K tile: packed weights are zero-padded to a multiple
+K_STEP = 32  # one tensor-core K step: packed weights are zero-padded to a multiple
+# csrc/qmm.cu's constants: rows and output channels per block, the longest K
+# taken in one pass, bytes added to each shared-memory row, threads per block,
+# and the shared-memory bytes in front of the tiles
+BLOCK_M, BLOCK_N, K_BLOCK, ROW_PAD, THREADS = 32, 128, 512, 16, 256
+HEAD_BYTES = 128 + (BLOCK_M + 2 * BLOCK_N) * 4
+SMEM_LIMIT = 232_448  # dynamic shared memory one block may ask for on an H100
 
 # kernel launches in this process (plain-version calls are not counted)
 launches = 0
@@ -53,11 +61,52 @@ def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return round_clip_s8(w.float(), sw), sw
 
 
+def pad_to(v: int, step: int) -> int:
+    return v + (-v % step)
+
+
+def k_blocks(k: int) -> List[Tuple[int, int]]:
+    """``(start, length)`` of the K passes of the kernel over ``K_pad``: the
+    whole of it up to 512, else blocks of 512 and a shorter last one."""
+    k_pad = pad_to(k, K_STEP)
+    return [(k0, min(K_BLOCK, k_pad - k0)) for k0 in range(0, k_pad, K_BLOCK)]
+
+
 def pack_weights(wq: torch.Tensor) -> torch.Tensor:
-    """int8 ``[K, N]`` -> the kernel's ``[N, K_pad]`` (K contiguous, zeros
-    past K, ``K_pad`` a multiple of 32)."""
-    k = wq.shape[0]
-    return F.pad(wq.t(), (0, -k % K_STEP)).contiguous()
+    """int8 ``[K, N]`` -> the kernel's ``[N_blocks, slab bytes]``: for each
+    block of 128 output channels and each K pass, 128 rows (one per output
+    channel, K contiguous) of ``length + 16`` bytes, zeros past K, past N and
+    in the 16 padding bytes, so that a pass is one contiguous copy."""
+    k, n = wq.shape
+    p = F.pad(wq.t(), (0, pad_to(k, K_STEP) - k, 0, pad_to(n, BLOCK_N) - n))
+    p = p.reshape(-1, BLOCK_N, p.shape[1])
+    slabs = [F.pad(p[:, :, k0 : k0 + kb], (0, ROW_PAD)).flatten(1) for k0, kb in k_blocks(k)]
+    return torch.cat(slabs, 1).contiguous()
+
+
+def unpack_weights(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_weights`: the int8 ``[K, N]`` it was given."""
+    rows, at = [], 0
+    for _, kb in k_blocks(k):
+        size = BLOCK_N * (kb + ROW_PAD)
+        rows.append(packed[:, at : at + size].reshape(-1, BLOCK_N, kb + ROW_PAD)[:, :, :kb])
+        at += size
+    return torch.cat(rows, 2).reshape(-1, pad_to(k, K_STEP))[:n, :k].t().contiguous()
+
+
+def matmul_plan(lanes: int, m: int, k: int, n: int) -> dict:
+    """The launch of ``csrc/qmm.cu`` for ``x [lanes, m, k]`` and ``n`` output
+    channels: rows of all lanes on one axis in tiles of 32, output channels
+    in blocks of 128, and shared memory for the head, the int8 activation
+    tile and the weight slab of one K pass."""
+    stride = max((kb for _, kb in k_blocks(k)), default=0) + ROW_PAD
+    return {
+        "block": (BLOCK_M, BLOCK_N),
+        "threads": THREADS,
+        "grid": (-(-lanes * m // BLOCK_M), -(-n // BLOCK_N)),
+        "k_pad": pad_to(k, K_STEP),
+        "smem_bytes": HEAD_BYTES + (BLOCK_M + BLOCK_N) * stride,
+    }
 
 
 def qmm_acc_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -80,7 +129,7 @@ def qmm_plain(
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmm.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.qmm.argtypes = [i, i, p, p, p, p, p, p, *[i] * 12, p]
     lib.qmm.restype = i
     lib.qmm_error_string.argtypes = [i]
     lib.qmm_error_string.restype = ctypes.c_char_p
@@ -111,9 +160,11 @@ def quant_matmul(
         return y[0] if squeeze else y
     if packed is None:
         packed = pack_weights(wq)
-    k_pad = k + (-k % K_STEP)
+    plan = matmul_plan(lanes, m, k, n)
+    k_pad = plan["k_pad"]
+    slab = BLOCK_N * (k_pad + ROW_PAD * len(k_blocks(k)))
     check_tensor(x, "x", x.dtype, (lanes, m, k))
-    check_tensor(packed, "packed", torch.int8, (n, k_pad))
+    check_tensor(packed, "packed", torch.int8, (plan["grid"][1], slab))
     check_tensor(sw, "sw", torch.float32, (n,))
     check_tensor(bias, "bias", torch.float32, (n,))
     if packed.device != x.device or packed.data_ptr() % 16:
@@ -122,9 +173,12 @@ def quant_matmul(
         raise ValueError(f"x {tuple(x.shape)} does not fit the kernel's int indexing")
     s = lane_scales(sx, lanes, x.device)
     out = torch.empty((lanes, m, n), dtype=out_dtype, device=x.device)
+    # 16-byte loads need whole vectors per row and an aligned base
+    vec = k % (16 if x.dtype == torch.int8 else 8) == 0 and x.data_ptr() % 16 == 0
     lib = _lib()
     args = (IN_KINDS[x.dtype], OUT_KINDS[out_dtype], x.data_ptr(), packed.data_ptr(),
-            sw.data_ptr(), s.data_ptr(), bias.data_ptr(), out.data_ptr(), lanes, m, k, k_pad, n)
+            sw.data_ptr(), s.data_ptr(), bias.data_ptr(), out.data_ptr(), lanes, m, k, k_pad, n,
+            int(vec), *plan["block"], plan["threads"], *plan["grid"], plan["smem_bytes"])
     launch(lib.qmm, args, x.device, lib.qmm_error_string)
     launches += 1
     return out[0] if squeeze else out

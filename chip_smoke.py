@@ -16,7 +16,9 @@ failure:
    ``quant_conv3x3`` at every channel count of the int8 path at 45x80, one
    and four lanes, in each input and output form, and on adversarial values
    (exact half-steps of the scale, values past +-127 steps, a ``[1]`` scale
-   broadcast to three lanes, a 7x13 image);
+   broadcast to three lanes, a 7x13 image), on a ReLU output with ``-0.0``
+   entries, at eight lanes, on 1x1 and 2x3 images, with 160 output channels
+   and 640 input channels, and on every finite bf16 value at five scales;
 3. the released BMCNet_plain checkpoint (n_c=128, n_b=5, x4) on the card:
    RMSE < 1e-3 against the reference rollout in ``tests/goldens``, bf16 and
    every int8 dtype within rel-RMSE 5e-2 of float32;
@@ -33,15 +35,23 @@ failure:
    ``tests/goldens/infer_goldens.npz``, per-window MSEs against the goldens,
    and ``cli.infer --dtype int8_pall``;
 6. each kernel's time against its plain version, its bound and a library
-   call, at the main path's shapes, and a JSON line with all of it.
+   call, at the main path's shapes (medians of three repeats with their
+   spread, yardsticks timed in turns with the kernels, the SM clock before
+   and after).  It runs between phases 3 and 4, because the profiler loses
+   device records late in a long process; the JSON line with all of it is
+   printed at the end.
 
-The last line is ``{"ok": true, "device": {...}}``.
+The last line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a
+subset of phases 2b-6 after the build, for work on one of them, and then
+prints no result line.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -118,25 +128,44 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int = 0) -> float:
     """Mean device time per call: the summed duration of every kernel,
     copy and fill that ``iters`` calls put on the card (``torch.profiler``),
-    free of the host's launch overhead."""
+    free of the host's launch overhead.  The profiler here now and then
+    returns a trace with no device record, or with only a part of them
+    (seen late in a long process: a quarter of the launches made through
+    ctypes).  So where the caller knows that ``fn`` puts ``launches`` kernels
+    on the card, the time is the mean over the records that did arrive,
+    times ``launches``; otherwise the number of records must be a multiple
+    of ``iters``, and a trace that fails this is taken again (at most
+    twice, and said so)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    ms = 0.0
+    for attempt in range(3):
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us, n = sum(e.self_device_time_total for e in rows), sum(e.count for e in rows)
+        if launches and n > 0:
+            return us / n * launches / 1e3
+        if us > 0:
+            ms = us / 1e3 / iters
+            if n % iters == 0:
+                return ms
+        print(f"device_ms: profiler trace {attempt + 1} recorded {n} device records for "
+              f"{iters} calls, again")
+        time.sleep(0.5)
+    check(ms > 0, "the profiler saw no device time")
+    print("device_ms: keeping a trace whose records are not a multiple of the calls")
+    return ms
 
 
 def random_windows(rng, g: int, n: int, hw, pad: int = 0):
@@ -179,6 +208,14 @@ def phase_kernels(dev):
     t0 = time.perf_counter()
     _build.build_all(sources)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {', '.join(sources)}")
+    for log in sorted(glob.glob(os.path.join(_build.BUILD_DIR, "*", "*.log"))):
+        with open(log) as f:
+            text = f.read()
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", text))
+        if regs:
+            print(f"  {os.path.basename(log)[:-4]}.cu: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                  f"registers a thread, {spills} bytes of spill stores")
 
     rng = np.random.default_rng(0)
     cases = {
@@ -275,16 +312,21 @@ def phase_int8_kernels(dev) -> dict:
             same("quant_conv3x3", qconv.quant_conv3x3(xin, wq, sw, sx, bias),
                  qconv.qconv3x3_plain(xin, wq, sw, sx, bias), f"{what} {xin.dtype}")
         same("quant_conv3x3",
+             qconv.quant_conv3x3(x, wq, sw, sx, bias, out_dtype=torch.float32),
+             qconv.qconv3x3_plain(x, wq, sw, sx, bias, torch.float32), f"{what} float32 out")
+        same("quant_conv3x3",
              qconv.quant_conv3x3(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True),
              qconv.qconv3x3_plain(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True),
              f"{what} int8 emit")
 
-    def qmm_case(x, k, sx, what):
-        wq, sw = qmm.quantize_weights(dev_t(rng.normal(0, 0.1, (k, 128))))
-        bias = dev_t(rng.normal(0, 0.5, 128))
+    def qmm_case(x, k, sx, what, n=128):
+        wq, sw = qmm.quantize_weights(dev_t(rng.normal(0, 0.1, (k, n))))
+        bias = dev_t(rng.normal(0, 0.5, n))
         for xin in (x, quantize.quantize_plain(x, sx)):
             same("quant_matmul", qmm.quant_matmul(xin, wq, sw, sx, bias),
                  qmm.qmm_plain(xin, wq, sw, sx, bias), f"{what} {xin.dtype}")
+        same("quant_matmul", qmm.quant_matmul(x, wq, sw, sx, bias, out_dtype=torch.float32),
+             qmm.qmm_plain(x, wq, sw, sx, bias, torch.float32), f"{what} float32 out")
 
     h, w = LR
     cins = sorted({c for c, _ in [*FULL_CONV3, *PLAIN_CONV3]})
@@ -316,18 +358,79 @@ def phase_int8_kernels(dev) -> dict:
                  quantize.quantize_plain(x, sx1, relu), f"adversarial {dtype} relu={relu}")
         qmm_case(x.reshape(3, 7 * 13, 131), 131, sx1, f"adversarial {dtype}")
         conv_case(x, 131, 32, sx1, f"adversarial {dtype} 7x13")
+
+    # a ReLU output (half zeros) with -0.0 entries; eight lanes; images
+    # smaller than one tile; a second, ragged block of output channels
+    # (160) and a K longer than one pass of the product (640)
+    x = torch.relu(dev_t(rng.normal(0, 2.0, (2, h, w, 128)), torch.bfloat16))
+    x[:, ::3, 1::2, ::5] = -0.0
+    check(bool((x == 0).float().mean() > 0.5) and bool(torch.signbit(x).any()), "no -0.0 input")
+    sx2 = lane_scales(2)
+    conv_case(x, 128, 128, sx2, "ReLU output with -0.0")
+    qmm_case(x.reshape(2, h * w, 128), 128, sx2, "ReLU output with -0.0")
+    x = dev_t(rng.normal(0, 2.0, (8, h, w, 128)), torch.bfloat16)
+    sx8 = lane_scales(8)
+    conv_case(x, 128, 128, sx8, f"B=8 {h}x{w} 128->128")
+    qmm_case(x.reshape(8, h * w, 128), 128, sx8, f"B=8 M={h * w} K=128")
+    for ih, iw in ((1, 1), (2, 3)):
+        x = dev_t(rng.normal(0, 2.0, (2, ih, iw, 150)), torch.bfloat16)
+        conv_case(x, 150, 128, sx2, f"B=2 {ih}x{iw} 150->128")
+    x = dev_t(rng.normal(0, 2.0, (2, 9, 21, 256)), torch.bfloat16)
+    conv_case(x, 256, 160, sx2, "B=2 9x21 256->160")
+    x = dev_t(rng.normal(0, 2.0, (2, 9, 21, 640)), torch.bfloat16)
+    conv_case(x, 640, 32, sx2, "B=2 9x21 640->32")
+    qmm_case(x.reshape(2, 9 * 21, 640), 640, sx2, "B=2 M=189 K=640 N=160", n=160)
+
+    # every finite bf16 value at several scales (the kernels' shortcut around
+    # the division and its fallback against the plain version's division)
+    allv = torch.arange(65536, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+    allv = allv[torch.isfinite(allv)]
+    allv = torch.cat([allv, allv.new_zeros(-allv.numel() % 128)])
+    for scale in (6.0 / 127.0, 0.0371, 2.0**-4, 1e-12 / 127.0, 3.0e5):
+        s1 = dev_t([scale])
+        qmm_case(allv.view(1, -1, 128), 128, s1, f"every bf16 value at scale {scale:.3e}")
+        conv_case(allv.view(1, 1, -1, 128), 128, 64, s1, f"every bf16 value at scale {scale:.3e}")
     print("int8 kernels bit-exact against their plain versions on the card: "
           + ", ".join(f"{k} {n} cases" for k, n in cases.items()))
     return err
 
 
+def sm_clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def median_ms(*fns, repeats: int = 3, iters: int = 20):
+    """``device_ms`` of each of ``fns`` ``repeats`` times, in turns (a, b, a,
+    b, ...) so that a drift of the clock hits all alike; per function the
+    median in ms and the spread ``(max - min) / median``.  A function given
+    as ``(fn, launches)`` puts that many kernels on the card per call."""
+    fns = [f if isinstance(f, tuple) else (f, 0) for f in fns]
+    runs = [[] for _ in fns]
+    for _ in range(repeats):
+        for r, (fn, launches) in zip(runs, fns):
+            r.append(device_ms(fn, iters=iters, launches=launches))
+    out = []
+    for r in runs:
+        med = sorted(r)[len(r) // 2]
+        out.append((med, (max(r) - min(r)) / med))
+    return out
+
+
 def time_int8(dev) -> dict:
     """Time of each int8 kernel per window of the full BMCNet (n_c=128, n_b=5,
-    x4, 45x80): each main-path shape timed alone (device time, one lane),
-    weighted by its call sites.  ``quant_conv3x3`` and ``quant_matmul`` in
-    their fused form (int8_pall), ``quantize_act`` in front of every 3x3
-    conv (int8_pquant).  The bound is the larger of the bytes over 3.35 TB/s
-    and the int8 operations over 1,979 TOP/s."""
+    x4, 45x80): each main-path shape timed alone (device time, one lane,
+    median of three repeats with the spread beside it), weighted by its call
+    sites.  ``quant_conv3x3`` and ``quant_matmul`` in their fused form
+    (int8_pall), each in turns with its yardstick (cuDNN's bf16 convolution,
+    ``torch._int_mm`` on the pre-quantized operand) and the ratio printed;
+    ``quantize_act`` in front of every 3x3 conv (int8_pquant).  The bound is
+    the larger of the bytes over 3.35 TB/s and the int8 operations over 1,979
+    TOP/s.  Then the 128 -> 128 conv and the K = 128 product at one and at
+    eight lanes, and the conv on a ReLU output.  The SM clock is printed
+    before and after."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -345,6 +448,13 @@ def time_int8(dev) -> dict:
         b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
         return max(b, o), b, o
 
+    def conv_bound(lanes, cin, cout):
+        return bound(lanes * 2 * hw * (cin + cout) + 9 * cin * cout + 8 * cout + 4 * lanes,
+                     lanes * 2 * hw * cout * 9 * cin)
+
+    def mm_bound(lanes, k, n=128):
+        return bound(lanes * 2 * hw * (k + n) + k * n + 8 * n + 4 * lanes, lanes * 2 * hw * k * n)
+
     out = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
                "bytes_ms": 0.0, "ops_ms": 0.0}
            for n in ("quantize_act", "quant_matmul", "quant_conv3x3")}
@@ -358,56 +468,87 @@ def time_int8(dev) -> dict:
         if lib is not None:
             o["library_ms"] = (o["library_ms"] or 0.0) + sites * lib
 
-    sx = torch.full((1,), 6.0 / 127.0, device=dev)
-    for (cin, cout), sites in FULL_CONV3.items():
-        x = dev_t((1, *LR, cin), 2.0, torch.bfloat16)
+    def conv_setup(lanes, cin, cout):
+        x = dev_t((lanes, *LR, cin), 2.0, torch.bfloat16)
         wq, sw = qconv.quantize_weights3x3(dev_t((3, 3, cin, cout), 0.05))
         bias, packed = dev_t((cout,), 0.5), qconv.pack_weights3x3(wq)
-        ms = device_ms(lambda: qconv.quant_conv3x3(x, wq, sw, sx, bias, packed=packed))
-        ev = cuda_ms(lambda: qconv.quant_conv3x3(x, wq, sw, sx, bias, packed=packed))
-        xq = quantize.quantize_act(x, sx)
-        ms_q = device_ms(lambda: qconv.quant_conv3x3(xq, wq, sw, sx, bias, packed=packed))
-        plain = device_ms(lambda: qconv.qconv3x3_plain(x, wq, sw, sx, bias), iters=5)
-        qms = device_ms(lambda: quantize.quantize_act(x, sx))
-        qplain = device_ms(lambda: quantize.quantize_plain(x, sx))
+        sx = torch.full((lanes,), 6.0 / 127.0, device=dev)
         # dense yardstick: cuDNN's bf16 convolution of the same shape
-        xc = x.permute(0, 3, 1, 2)
         wc = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        dense = device_ms(lambda: F.conv2d(xc, wc, padding=1))
-        bnd = bound(2 * hw * cin + 9 * cin * cout + 8 * cout + 4 + 2 * hw * cout,
-                    2 * hw * cout * 9 * cin)
-        qbnd = bound(3 * hw * cin, 0)
+        return (x, wq, sw, sx, bias, packed,
+                lambda xin: qconv.quant_conv3x3(xin, wq, sw, sx, bias, packed=packed),
+                lambda: F.conv2d(x.permute(0, 3, 1, 2), wc, padding=1))
+
+    def mm_setup(lanes, k):
+        x = dev_t((lanes, hw, k), 2.0, torch.bfloat16)
+        wq, sw = qmm.quantize_weights(dev_t((k, 128), 0.1))
+        bias, packed = dev_t((128,), 0.5), qmm.pack_weights(wq)
+        sx = torch.full((lanes,), 6.0 / 127.0, device=dev)
+        xq = quantize.quantize_plain(x, sx).view(lanes * hw, k)
+        # library yardstick: the int8 product alone, on the pre-quantized operand
+        return (x, wq, sw, sx, bias,
+                lambda: qmm.quant_matmul(x, wq, sw, sx, bias, packed=packed),
+                lambda: torch._int_mm(xq, wq))
+
+    # bring the clock up before the first measurement
+    spin = dev_t((4096, 4096), 1.0, torch.bfloat16)
+    for _ in range(200):
+        spin @ spin
+    torch.cuda.synchronize()
+    print(f"int8 timing: SM clock, max SM clock before = {sm_clocks()}")
+
+    for (cin, cout), sites in FULL_CONV3.items():
+        x, wq, sw, sx, bias, packed, conv, dense = conv_setup(1, cin, cout)
+        (ms, sp), (dms, dsp) = median_ms((lambda: conv(x), 1), dense)
+        ev = cuda_ms(lambda: conv(x))
+        xq = quantize.quantize_act(x, sx)
+        ((ms_q, sp_q),) = median_ms((lambda: conv(xq), 1))
+        plain = device_ms(lambda: qconv.qconv3x3_plain(x, wq, sw, sx, bias), iters=5)
+        ((qms, qsp),) = median_ms((lambda: quantize.quantize_act(x, sx), 1))
+        qplain = device_ms(lambda: quantize.quantize_plain(x, sx))
+        bnd, qbnd = conv_bound(1, cin, cout), bound(3 * hw * cin, 0)
         print(f"int8 timing quant_conv3x3 {cin}->{cout} x{sites}/window: fused {ms:.5f} ms "
-              f"({ev:.5f} ms per call back to back, host included), int8-input {ms_q:.5f} ms, "
-              f"plain {plain:.5f} ms, bound {bnd[0]:.5f} ms, "
-              f"cuDNN bf16 conv (yardstick) {dense:.5f} ms; quantize_act C={cin}: "
-              f"{qms:.5f} ms, plain {qplain:.5f} ms, bound {qbnd[0]:.5f} ms")
-        if (cin, cout) == (128, 128):
-            # the same call on an input that is half zeros, as after a ReLU
-            xr = torch.relu(x)
-            relu_ms = device_ms(lambda: qconv.quant_conv3x3(xr, wq, sw, sx, bias, packed=packed))
-            print(f"int8 timing quant_conv3x3 128->128 fused on a ReLU output: {relu_ms:.5f} ms")
+              f"(spread {sp:.1%}; {ev:.5f} ms per call back to back, host included), int8-input "
+              f"{ms_q:.5f} ms (spread {sp_q:.1%}), plain {plain:.5f} ms, bound {bnd[0]:.5f} ms, "
+              f"cuDNN bf16 conv (yardstick) {dms:.5f} ms (spread {dsp:.1%}), ratio to it "
+              f"{ms / dms:.2f}x; quantize_act C={cin}: {qms:.5f} ms (spread {qsp:.1%}), plain "
+              f"{qplain:.5f} ms, bound {qbnd[0]:.5f} ms")
         add("quant_conv3x3", sites, ms, plain, bnd)
         add("quantize_act", sites, qms, qplain, qbnd)
     for k, sites in FULL_QMM.items():
-        x = dev_t((1, hw, k), 2.0, torch.bfloat16)
-        wq, sw = qmm.quantize_weights(dev_t((k, 128), 0.1))
-        bias, packed = dev_t((128,), 0.5), qmm.pack_weights(wq)
-        ms = device_ms(lambda: qmm.quant_matmul(x, wq, sw, sx, bias, packed=packed))
+        x, wq, sw, sx, bias, mm, lib_mm = mm_setup(1, k)
+        (ms, sp), (lib, lsp) = median_ms((mm, 1), lib_mm)
         plain = device_ms(lambda: qmm.qmm_plain(x, wq, sw, sx, bias), iters=5)
-        xq2 = quantize.quantize_act(x.view(1, 1, hw, k), sx).view(hw, k)
-        # library yardstick: the int8 product alone, on the pre-quantized operand
-        lib = device_ms(lambda: torch._int_mm(xq2, wq))
-        bnd = bound(2 * hw * k + k * 128 + 8 * 128 + 4 + 2 * hw * 128, 2 * hw * k * 128)
-        print(f"int8 timing quant_matmul M={hw} K={k} N=128 x{sites}/window: {ms:.5f} ms, "
-              f"plain {plain:.5f} ms, torch._int_mm (product alone) {lib:.5f} ms, "
+        bnd = mm_bound(1, k)
+        print(f"int8 timing quant_matmul M={hw} K={k} N=128 x{sites}/window: {ms:.5f} ms "
+              f"(spread {sp:.1%}), plain {plain:.5f} ms, torch._int_mm (product alone) "
+              f"{lib:.5f} ms (spread {lsp:.1%}), ratio to it {ms / lib:.2f}x, "
               f"bound {bnd[0]:.5f} ms")
         add("quant_matmul", sites, ms, plain, bnd, lib)
+
+    # one lane against eight, and a ReLU output (half zeros) against dense input
+    for lanes in (1, 8):
+        x, *_, conv, dense = conv_setup(lanes, 128, 128)
+        xr = torch.relu(x)
+        (ms, sp), (rms, rsp), (dms, dsp) = median_ms(
+            (lambda: conv(x), 1), (lambda: conv(xr), 1), dense)
+        print(f"int8 timing quant_conv3x3 128->128 at {lanes} lane(s): fused {ms:.5f} ms (spread "
+              f"{sp:.1%}), on a ReLU output {rms:.5f} ms (spread {rsp:.1%}, {rms / ms:.2f}x the "
+              f"dense input), bound {conv_bound(lanes, 128, 128)[0]:.5f} ms, cuDNN bf16 conv "
+              f"{dms:.5f} ms (spread {dsp:.1%}), ratio to it {ms / dms:.2f}x")
+        *_, mm, lib_mm = mm_setup(lanes, 128)
+        (ms, sp), (lib, lsp) = median_ms((mm, 1), lib_mm)
+        print(f"int8 timing quant_matmul K=128 N=128 at {lanes} lane(s): {ms:.5f} ms (spread "
+              f"{sp:.1%}), bound {mm_bound(lanes, 128)[0]:.5f} ms, torch._int_mm {lib:.5f} ms "
+              f"(spread {lsp:.1%}), ratio to it {ms / lib:.2f}x")
+    print(f"int8 timing: SM clock, max SM clock after = {sm_clocks()}")
+
     for name, o in out.items():
         o["bound_by"] = "bytes" if o.pop("bytes_ms") >= o.pop("ops_ms") else "operations"
+        lib = o["library_ms"]
         print(f"int8 timing {name} per window of the full model: {o['ms']:.5f} ms, plain "
               f"{o['plain_ms']:.5f} ms, bound {o['bound_ms']:.5f} ms ({o['bound_by']}), "
-              f"library {o['library_ms']}")
+              f"library {lib}" + (f", ratio to it {o['ms'] / lib:.2f}x" if lib else ""))
     return out
 
 
@@ -701,7 +842,21 @@ def phase_h5(dev) -> str:
     return "h5 (infer_file + cli.infer, float32 and int8_pall)"
 
 
-def main() -> int:
+PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases after the kernel build, for "
+                         f"work on one of them (default: all of {', '.join(PHASES)}); a partial "
+                         "run prints no result line")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phase in {phases}: choose from {PHASES}")
     try:
         import torch
     except ImportError:
@@ -725,13 +880,21 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     err, inputs = phase_kernels(dev)
-    errs8 = phase_int8_kernels(dev)
-    phase_checkpoint(dev)
-    launches = phase_rollouts(dev, card)
-    route = phase_h5(dev)
-    print(f"parity route: {route}")
-    t = time_rasterizer(inputs)
-    t8 = time_int8(dev)
+    if "int8_kernels" in phases:
+        errs8 = phase_int8_kernels(dev)
+    if "checkpoint" in phases:
+        phase_checkpoint(dev)
+    if "timing" in phases:  # before the rollouts: the profiler loses records late in a long run
+        t = time_rasterizer(inputs)
+        t8 = time_int8(dev)
+    if "rollouts" in phases:
+        launches = phase_rollouts(dev, card)
+    if "h5" in phases:
+        print(f"parity route: {phase_h5(dev)}")
+    if set(phases) != set(PHASES):
+        print(card)
+        print(f"partial run ({', '.join(phases)}): no result line")
+        return 0
 
     kernels = [{
         "name": "rasterize_counts",

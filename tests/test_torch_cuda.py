@@ -142,12 +142,13 @@ def test_quantize_act_bit_exact_against_plain(cuda, b, hw, c):
     assert torch.equal(quantize.quantize_act(x.float(), sx), quantize.quantize_plain(x, sx))
 
 
-@pytest.mark.parametrize("b,m,k", [(1, 3600, 128), (4, 3600, 256), (2, 91, 131)])
-def test_quant_matmul_bit_exact_against_plain(cuda, b, m, k):
+@pytest.mark.parametrize("b,m,k,n", [(1, 3600, 128, 128), (4, 3600, 256, 128), (2, 91, 131, 128),
+                                     (8, 3600, 128, 128), (2, 189, 640, 160), (3, 1, 128, 24)])
+def test_quant_matmul_bit_exact_against_plain(cuda, b, m, k, n):
     rng = np.random.default_rng(2)
     x, sx = _act(rng, (b, m, k), cuda), _scales(rng, b, cuda)
-    wq, sw = qmm.quantize_weights(_act(rng, (k, 128), cuda, torch.float32) * 0.05)
-    bias = _act(rng, (128,), cuda, torch.float32)
+    wq, sw = qmm.quantize_weights(_act(rng, (k, n), cuda, torch.float32) * 0.05)
+    bias = _act(rng, (n,), cuda, torch.float32)
     for xin in (x, quantize.quantize_plain(x, sx)):
         for out_dtype in (torch.bfloat16, torch.float32):
             got = qmm.quant_matmul(xin, wq, sw, sx, bias, out_dtype=out_dtype)
@@ -156,8 +157,13 @@ def test_quant_matmul_bit_exact_against_plain(cuda, b, m, k):
 
 @pytest.mark.parametrize("b,hw,cin,cout", [
     (1, (45, 80), 150, 128), (4, (45, 80), 416, 128), (2, (45, 80), 256, 32), (3, (7, 13), 131, 8),
+    (8, (45, 80), 128, 128), (2, (1, 1), 150, 128), (2, (2, 3), 128, 32), (2, (9, 21), 256, 160),
+    (2, (9, 21), 640, 32),
 ])
 def test_quant_conv3x3_bit_exact_against_plain(cuda, b, hw, cin, cout):
+    """Every channel count of the main path, eight lanes, images smaller
+    than one tile, a second and ragged block of output channels (160) and
+    more input channels than one staged halo block holds (640)."""
     rng = np.random.default_rng(3)
     x, sx, se = _act(rng, (b, *hw, cin), cuda), _scales(rng, b, cuda), _scales(rng, b, cuda)
     wq, sw = qconv.quantize_weights3x3(_act(rng, (3, 3, cin, cout), cuda, torch.float32) * 0.02)
@@ -168,6 +174,44 @@ def test_quant_conv3x3_bit_exact_against_plain(cuda, b, hw, cin, cout):
         assert torch.equal(got, qconv.qconv3x3_plain(xin, wq, sw, sx, bias))
     got = qconv.quant_conv3x3(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True)
     assert torch.equal(got, qconv.qconv3x3_plain(xq, wq, sw, sx, bias, emit_scale=se, emit_relu=True))
+
+
+def test_int8_kernels_on_relu_output_with_negative_zeros(cuda):
+    """A ReLU output: more than half zeros, some of them -0.0.  The kernels
+    quantize a zero without a division; the plain version divides."""
+    rng = np.random.default_rng(5)
+    x, sx = torch.relu(_act(rng, (2, 45, 80, 128), cuda)), _scales(rng, 2, cuda)
+    x[:, ::3, 1::2, ::5] = -0.0
+    assert float((x == 0).float().mean()) > 0.5 and bool(torch.signbit(x).any())
+    wq, sw = qconv.quantize_weights3x3(_act(rng, (3, 3, 128, 128), cuda, torch.float32) * 0.02)
+    wq1, sw1 = qmm.quantize_weights(_act(rng, (128, 128), cuda, torch.float32) * 0.05)
+    bias = _act(rng, (128,), cuda, torch.float32)
+    for xin in (x, x.float()):
+        assert torch.equal(qconv.quant_conv3x3(xin, wq, sw, sx, bias),
+                           qconv.qconv3x3_plain(xin, wq, sw, sx, bias))
+        assert torch.equal(qmm.quant_matmul(xin.view(2, -1, 128), wq1, sw1, sx, bias),
+                           qmm.qmm_plain(xin.view(2, -1, 128), wq1, sw1, sx, bias))
+
+
+@pytest.mark.parametrize("scale", [6.0 / 127.0, 0.0371, 2.0**-4, 1e-12 / 127.0, 3.0e5])
+def test_int8_kernels_quantize_every_bf16_value_as_plain(cuda, scale):
+    """Every finite bf16 value, through both kernels' fused quantization at
+    one scale, against the plain version's division: the kernels' shortcut
+    around the division and its fallback give the same int8 everywhere."""
+    bits = torch.arange(65536, dtype=torch.int32, device=cuda).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    x = torch.cat([x, x.new_zeros(-x.numel() % 128)]).view(1, -1, 128)
+    sx = torch.tensor([scale], device=cuda)
+    rng = np.random.default_rng(6)
+    wq1, sw1 = qmm.quantize_weights(_act(rng, (128, 128), cuda, torch.float32))
+    bias = torch.zeros(128, device=cuda)
+    assert torch.equal(qmm.quant_matmul(x, wq1, sw1, sx, bias, out_dtype=torch.float32),
+                       qmm.qmm_plain(x, wq1, sw1, sx, bias, torch.float32))
+    xi = x.view(1, 1, -1, 128)
+    wq, sw = qconv.quantize_weights3x3(_act(rng, (3, 3, 128, 64), cuda, torch.float32))
+    assert torch.equal(qconv.quant_conv3x3(xi, wq, sw, sx, bias[:64], out_dtype=torch.float32),
+                       qconv.qconv3x3_plain(xi, wq, sw, sx, bias[:64], torch.float32))
 
 
 def test_int8_kernels_batched_equal_solo_launches(cuda):
