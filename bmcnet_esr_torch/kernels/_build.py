@@ -35,6 +35,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# what the launch plans assume of an H100 where the caller does not ask the
+# card: its multiprocessors, and the dynamic shared memory one block may take
+H100_SMS = 132
+SMEM_LIMIT = 232_448
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 

@@ -36,7 +36,13 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from bmcnet_esr_torch.kernels._build import check_tensor, device_kind, launch, load_library
+from bmcnet_esr_torch.kernels._build import (
+    H100_SMS,
+    check_tensor,
+    device_kind,
+    launch,
+    load_library,
+)
 from bmcnet_esr_torch.kernels.qmm import IN_KINDS, K_STEP, ROW_PAD, SMEM_LIMIT, pad_to
 from bmcnet_esr_torch.kernels.quantize import (
     epilogue_plain,
@@ -60,7 +66,6 @@ OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 # bytes in front of the halo
 TILE, BLOCK_N, K_CHUNK, HALO_BLOCK, THREADS = (4, 16), 64, 128, 512, (544, 288)
 STAGES = 4  # weight slabs in flight; more did not shorten the loop on an H100
-H100_SMS = 132
 HEAD_BYTES = 128 + 2 * BLOCK_N * 4
 STAGE_BYTES = BLOCK_N * K_CHUNK
 HALO_PIXELS = (TILE[0] + 2) * (TILE[1] + 2)

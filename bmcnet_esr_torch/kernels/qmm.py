@@ -29,7 +29,13 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from bmcnet_esr_torch.kernels._build import check_tensor, device_kind, launch, load_library
+from bmcnet_esr_torch.kernels._build import (
+    SMEM_LIMIT,
+    check_tensor,
+    device_kind,
+    launch,
+    load_library,
+)
 from bmcnet_esr_torch.kernels.quantize import (
     epilogue_plain,
     lane_scales,
@@ -45,7 +51,6 @@ K_STEP = 32  # one tensor-core K step: packed weights are zero-padded to a multi
 # and the shared-memory bytes in front of the tiles
 BLOCK_M, BLOCK_N, K_BLOCK, ROW_PAD, THREADS = 32, 128, 512, 16, 256
 HEAD_BYTES = 128 + (BLOCK_M + 2 * BLOCK_N) * 4
-SMEM_LIMIT = 232_448  # dynamic shared memory one block may ask for on an H100
 
 # kernel launches in this process (plain-version calls are not counted)
 launches = 0

@@ -5,7 +5,7 @@ Counterpart of ``bmcnet_esr_tpu/ops/pallas/quantize.py`` (``quantize_act``,
 kernel body ``_quant_kernel``; ``quantize_reference``): ``x [B, H, W, C]``
 bf16 / float32 -> int8 at a static per-lane scale ``sx`` (scalar, ``[1]`` or
 ``[B]``), ``clip(round_half_even([relu](x) / sx[b]), -127, 127)``.  The
-kernel is ``csrc/quantize.cu``.
+kernel is ``csrc/quantize.cu``; :func:`quantize_plan` sizes its grid.
 
 Routing is by the device of the input: a CPU tensor goes through
 :func:`quantize_plain`, a CUDA tensor through the kernel (or an exception;
@@ -19,12 +19,29 @@ import functools
 
 import torch
 
-from bmcnet_esr_torch.kernels._build import device_kind, launch, load_library
+from bmcnet_esr_torch.kernels._build import H100_SMS, device_kind, launch, load_library
 
 SOURCE = "quantize.cu"
 
 # kernel launches in this process (plain-version calls are not counted)
 launches = 0
+
+# csrc/quantize.cu's constants: threads per block, elements a thread
+# quantizes per step (one 4-byte store), and the blocks of one
+# multiprocessor that the plan counts on being resident together
+THREADS, UNIT, BLOCKS_PER_SM = 256, 4, 8
+
+
+def quantize_plan(lanes: int, per_lane: int, sms: int = H100_SMS) -> dict:
+    """The launch of ``csrc/quantize.cu`` for ``lanes`` lanes of ``per_lane``
+    elements: a grid of ``(blocks, lanes)`` blocks of 256 threads.  Thread
+    ``t`` of a lane's ``blocks * 256`` takes the units of 4 elements ``t``,
+    ``t + blocks * 256``, ...: one unit each while the card has room for all
+    blocks at once (``sms * 8`` of them), a loop inside the block beyond."""
+    units = -(-per_lane // UNIT)
+    room = max(1, sms * BLOCKS_PER_SM // max(lanes, 1))
+    blocks = max(1, min(-(-units // THREADS), room))
+    return {"threads": THREADS, "unit": UNIT, "grid": (blocks, lanes)}
 
 
 def symmetric_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -84,11 +101,17 @@ def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     for name in ("quantize_act_bf16", "quantize_act_f32"):
-        getattr(lib, name).argtypes = [p, p, p, i, i, i, p]
+        getattr(lib, name).argtypes = [p, p, p, i, i, i, i, p]
         getattr(lib, name).restype = i
+    lib.quantize_empty.argtypes = [i, i, p]
+    lib.quantize_empty.restype = i
     lib.quantize_error_string.argtypes = [i]
     lib.quantize_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def quantize_act(x: torch.Tensor, sx, relu: bool = False) -> torch.Tensor:
@@ -107,9 +130,21 @@ def quantize_act(x: torch.Tensor, sx, relu: bool = False) -> torch.Tensor:
         raise ValueError(f"{per_lane} elements per lane do not fit the kernel's int indexing")
     s = lane_scales(sx, lanes, x.device)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
     lib = _lib()
     fn = lib.quantize_act_bf16 if x.dtype == torch.bfloat16 else lib.quantize_act_f32
-    launch(fn, (x.data_ptr(), s.data_ptr(), out.data_ptr(), lanes, per_lane, int(relu)),
+    blocks = quantize_plan(lanes, per_lane, sms=_sms(x.device))["grid"][0]
+    launch(fn, (x.data_ptr(), s.data_ptr(), out.data_ptr(), lanes, per_lane, int(relu), blocks),
            x.device, lib.quantize_error_string)
     launches += 1
     return out
+
+
+def launch_empty_grid(x: torch.Tensor) -> None:
+    """Launch a kernel that does nothing on the grid :func:`quantize_act`
+    takes for ``x``: the floor of one launch of that size, for measurement."""
+    lanes = x.shape[0]
+    blocks = quantize_plan(lanes, x[0].numel(), sms=_sms(x.device))["grid"][0]
+    lib = _lib()
+    launch(lib.quantize_empty, (lanes, blocks), x.device, lib.quantize_error_string)

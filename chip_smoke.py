@@ -11,8 +11,12 @@ failure:
 1. card identity (``nvidia-smi`` name and power limit);
 2. build every CUDA kernel from ``bmcnet_esr_torch/csrc`` (one ``nvcc`` per
    source, all at once) and hold each one bit-exact against its plain
-   PyTorch version: the rasterizer at the main path's chunk shapes and on an
-   adversarial window; ``quantize_act``, ``quant_matmul`` and
+   PyTorch version: the rasterizer at the main path's chunk shapes, on an
+   adversarial window, with every event on one pixel, on one window, on a
+   one-row image, on odd N and odd W, on N = 4 mod 8, and at a shape its
+   plan gives to the per-event kernel, each into an output pre-filled with
+   NaN (nothing zero-fills it any more); ``quantize_act`` also on lanes that
+   start off a vector's boundary; ``quantize_act``, ``quant_matmul`` and
    ``quant_conv3x3`` at every channel count of the int8 path at 45x80, one
    and four lanes, in each input and output form, and on adversarial values
    (exact half-steps of the scale, values past +-127 steps, a ``[1]`` scale
@@ -218,44 +222,123 @@ def phase_kernels(dev):
                   f"registers a thread, {spills} bytes of spill stores")
 
     rng = np.random.default_rng(0)
+    hot = random_windows(rng, CHUNK, SCALE**2 * N_LR, GT)
+    hot[:, 0], hot[:, 1] = 7, 9  # every event of every window on one pixel
+    wide = (2, 30000)  # one row of counters exceeds shared memory: the per-event kernel
     cases = {
         "lr_chunk": (random_windows(rng, CHUNK + 1, N_LR, LR, pad=64), LR),
         "gt_chunk": (random_windows(rng, CHUNK, SCALE**2 * N_LR, GT, pad=512), GT),
         "adversarial": (adversarial_window(LR), LR),
+        "hot_pixel": (hot, GT),
+        "one_window": (random_windows(rng, 1, SCALE**2 * N_LR, GT, pad=512), GT),
+        "one_row": (random_windows(rng, 5, N_LR, (1, 320)), (1, 320)),
+        "odd_n_odd_w": (random_windows(rng, 3, 2047, (9, 13), pad=9), (9, 13)),
+        "n_4_mod_8": (random_windows(rng, 3, 2044, LR), LR),
+        "one_pixel_image": (random_windows(rng, 2, 512, (1, 1)), (1, 1)),
+        "per_event_route": (random_windows(rng, 2, 4096, wide), wide),
     }
     err = 0.0
     inputs = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (ev, hw) in cases.items():
         xy, p = (torch.from_numpy(a).to(dev) for a in compact_events(ev))
         evd = torch.from_numpy(ev).to(dev)
-        got = rasterize.counts_from_compact(xy, p, hw)
+        g, _, n = ev.shape
+        plans = [rasterize.raster_plan(g, n, *hw, compact, sms=sms) for compact in (True, False)]
+        check((plans[0]["route"] == "event") == (name == "per_event_route"),
+              f"{name}: the plan took the {plans[0]['route']} route")
+        # into buffers full of NaN: an element no block writes would show
+        junk = [torch.full((g, *hw, 2), float("nan"), device=dev) for _ in range(2)]
+        got = rasterize.counts_from_compact(xy, p, hw, out=junk[0])
         want = rasterize.counts_plain(xy[:, 0], xy[:, 1], p, hw)
-        got_raw = rasterize.counts_from_events(evd, hw)
+        got_raw = rasterize.counts_from_events(evd, hw, out=junk[1])
         want_raw = rasterize.counts_plain(evd[:, 0], evd[:, 1], evd[:, 3], hw)
+        fresh = rasterize.counts_from_compact(xy, p, hw)
         torch.cuda.synchronize()
         d = max(float((got - want).abs().max()), float((got_raw - want_raw).abs().max()),
-                float((got - got_raw).abs().max()))
+                float((got - got_raw).abs().max()), float((fresh - want).abs().max()))
         check(d == 0.0, f"rasterizer differs from its plain version on {name}: {d}")
         check(float(got.sum()) > 0, f"empty count image on {name}")
         err = max(err, d)
         inputs[name] = (xy, p, hw)
-        print(f"rasterize {name}: G={ev.shape[0]} N={ev.shape[2]} {hw}: bit-exact, "
-              f"{int(got.sum())} counts")
+        print(f"rasterize {name}: G={g} N={n} {hw}: bit-exact into NaN-filled outputs, "
+              f"{int(got.sum())} counts; plan compact {plans[0]}, raw {plans[1]}")
+    # no events at all: the kernel still has to write the zeros
+    xy = torch.zeros((2, 2, 0), dtype=torch.int16, device=dev)
+    p = torch.zeros((2, 0), dtype=torch.int8, device=dev)
+    got = rasterize.counts_from_compact(
+        xy, p, LR, out=torch.full((2, *LR, 2), float("nan"), device=dev))
+    torch.cuda.synchronize()
+    check(float(got.abs().max()) == 0.0, "N = 0 does not give a zero image")
     return err, inputs
+
+
+def per_event_counts(xy, p, hw):
+    """The kept per-event kernel (memset + one atomicAdd per event) forced on
+    a shape whose plan takes the band kernel: the earlier design, for timing
+    beside the new one."""
+    import torch
+
+    from bmcnet_esr_torch.kernels import _build, rasterize
+
+    g, _, n = xy.shape
+    out = torch.empty((g, *hw, 2), dtype=torch.float32, device=xy.device)
+    lib = rasterize._lib()
+    _build.launch(lib.rasterize_counts_compact,
+                  (xy.data_ptr(), p.data_ptr(), out.data_ptr(), g, n, *hw, 0, 256, 0),
+                  xy.device, lib.rasterize_error_string)
+    return out
+
+
+def device_records(fn) -> dict:
+    """Name -> count of everything one call of ``fn`` puts on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def time_rasterizer(inputs) -> dict:
     """Kernel, plain and library times at the main path's chunk shapes (one
-    LR call + one GT call), beside the byte bound."""
+    LR call + one GT call), beside the byte bound; the kept per-event kernel
+    at the same shapes, timed in turns with the band kernel; and both on a
+    GT chunk with every event on one pixel.  Medians of three repeats."""
     import torch
 
     from bmcnet_esr_torch.kernels import rasterize
 
-    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for name in ("lr_chunk", "gt_chunk"):
+    xy, p, hw = inputs["gt_chunk"]
+    recs = device_records(lambda: rasterize.counts_from_compact(xy, p, hw))
+    print(f"rasterize profile of one counts_from_compact call (gt_chunk): {recs}")
+    check(len(recs) == 1 and all("band_kernel" in k and c == 1 for k, c in recs.items()),
+          f"one call put more than the one band kernel on the card: {recs}")
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "event_ms": 0.0}
+    for name in ("lr_chunk", "gt_chunk", "hot_pixel"):
         xy, p, (h, w) = inputs[name]
         g, _, n = xy.shape
-        ms = device_ms(lambda: rasterize.counts_from_compact(xy, p, (h, w)))
+        want = rasterize.counts_plain(xy[:, 0], xy[:, 1], p, (h, w))
+        check(torch.equal(per_event_counts(xy, p, (h, w)), want), f"per-event kernel on {name}")
+        (ms, sp), (ems, esp) = median_ms(
+            (lambda: rasterize.counts_from_compact(xy, p, (h, w)), 1),
+            lambda: per_event_counts(xy, p, (h, w)))
+        if name != "lr_chunk":  # the raw float32 form of the same windows (float counters)
+            raw = torch.zeros((g, 4, n), device=xy.device)
+            raw[:, 0], raw[:, 1], raw[:, 3] = xy[:, 0].float(), xy[:, 1].float(), p.float()
+            check(torch.equal(rasterize.counts_from_events(raw, (h, w)), want), f"raw form {name}")
+            ((rms, rsp),) = median_ms((lambda: rasterize.counts_from_events(raw, (h, w)), 1))
+            print(f"rasterize timing {name}: raw float32 form, band kernel {rms:.5f} ms "
+                  f"(spread {rsp:.1%})")
+        if name == "hot_pixel":
+            print(f"rasterize timing {name} (every event of a window on one pixel): band kernel "
+                  f"{ms:.5f} ms (spread {sp:.1%}), per-event kernel with its memset {ems:.5f} ms "
+                  f"(spread {esp:.1%})")
+            continue
         ev = cuda_ms(lambda: rasterize.counts_from_compact(xy, p, (h, w)))
         plain = device_ms(lambda: rasterize.counts_plain(xy[:, 0], xy[:, 1], p, (h, w)))
         # library yardstick: one index_put_ scatter into a fresh zero image,
@@ -268,11 +351,16 @@ def time_rasterizer(inputs) -> dict:
         lib = device_ms(lambda: torch.zeros(g * h * w * 2, device=xy.device)
                         .index_put_((idx,), val, accumulate=True))
         bound = (g * n * 5 + g * h * w * 2 * 4) / HBM_BYTES_PER_S * 1e3
-        print(f"rasterize timing {name}: kernel {ms:.5f} ms on the device ({ev:.5f} ms per "
-              f"call back to back, host included), plain {plain:.5f} ms, index_put_ "
+        print(f"rasterize timing {name}: band kernel {ms:.5f} ms on the device (spread {sp:.1%}; "
+              f"{ev:.5f} ms per call back to back, host included), per-event kernel with its "
+              f"memset {ems:.5f} ms (spread {esp:.1%}), plain {plain:.5f} ms, index_put_ "
               f"{lib:.5f} ms, bound {bound:.5f} ms")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound),
+                     ("event_ms", ems)):
             out[k] += v
+    print(f"rasterize timing LR + GT chunk: band kernel {out['ms']:.5f} ms, per-event kernel "
+          f"{out['event_ms']:.5f} ms, bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_ms'] / out['ms']:.1%} of the time)")
     return out
 
 
@@ -390,6 +478,32 @@ def phase_int8_kernels(dev) -> dict:
         s1 = dev_t([scale])
         qmm_case(allv.view(1, -1, 128), 128, s1, f"every bf16 value at scale {scale:.3e}")
         conv_case(allv.view(1, 1, -1, 128), 128, 64, s1, f"every bf16 value at scale {scale:.3e}")
+    # quantize_act's units with its scalar head and tail: lanes that start off
+    # a unit's boundary (odd C on small images), float32 input, eight lanes, a
+    # view whose first element is off the boundary (input and output never on
+    # one together: no unit at all), ReLU on -0.0, and every finite bf16 value
+    def quant_case(x, sx, what):
+        for relu in (False, True):
+            same("quantize_act", quantize.quantize_act(x, sx, relu),
+                 quantize.quantize_plain(x, sx, relu), f"{what} relu={relu}")
+
+    sx3 = lane_scales(3)
+    for dtype in (torch.bfloat16, torch.float32):
+        for ih, iw, c in ((1, 1, 131), (2, 3, 131), (1, 1, 7), (3, 5, 150), (7, 13, 129)):
+            x = dev_t(rng.normal(0, 2.0, (3, ih, iw, c)), dtype)
+            quant_case(x, sx3, f"B=3 {ih}x{iw}x{c} {dtype}")
+        flat = dev_t(rng.normal(0, 2.0, 1 + 2 * 9 * 5 * 37), dtype)
+        quant_case(flat[1:].view(2, 9, 5, 37), sx2, f"view off the boundary {dtype}")
+        quant_case(dev_t(rng.normal(0, 2.0, (8, h, w, 128)), dtype), sx8, f"B=8 C=128 {dtype}")
+    x = torch.relu(dev_t(rng.normal(0, 2.0, (2, h, w, 131)), torch.bfloat16))
+    x[:, ::3, 1::2, ::5] = -0.0
+    check(bool(torch.signbit(x).any()), "no -0.0 input")
+    quant_case(x, sx2, "ReLU output with -0.0")
+    for scale in (6.0 / 127.0, 0.0371, 2.0**-4, 1e-12 / 127.0, 3.0e5):
+        quant_case(allv.view(1, 1, -1, 128), dev_t([scale]),
+                   f"every bf16 value at scale {scale:.3e}")
+        quant_case(allv[3:-2].view(1, 1, 1, -1), dev_t([scale]),
+                   f"every bf16 value off the boundary at scale {scale:.3e}")
     print("int8 kernels bit-exact against their plain versions on the card: "
           + ", ".join(f"{k} {n} cases" for k, n in cases.items()))
     return err
@@ -426,7 +540,9 @@ def time_int8(dev) -> dict:
     sites.  ``quant_conv3x3`` and ``quant_matmul`` in their fused form
     (int8_pall), each in turns with its yardstick (cuDNN's bf16 convolution,
     ``torch._int_mm`` on the pre-quantized operand) and the ratio printed;
-    ``quantize_act`` in front of every 3x3 conv (int8_pquant).  The bound is
+    ``quantize_act`` in front of every 3x3 conv (int8_pquant), and at C=128
+    (one and eight lanes) and C=416 beside an empty kernel on its grid and a
+    cast of the same bytes.  The bound is
     the larger of the bytes over 3.35 TB/s and the int8 operations over 1,979
     TOP/s.  Then the 128 -> 128 conv and the K = 128 product at one and at
     eight lanes, and the conv on a ReLU output.  The SM clock is printed
@@ -439,6 +555,7 @@ def time_int8(dev) -> dict:
 
     rng = np.random.default_rng(4)
     hw = LR[0] * LR[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def dev_t(shape, sd, dtype=torch.float32):
         return torch.from_numpy(rng.normal(0, sd, shape).astype(np.float32)).to(dev).to(dtype)
@@ -541,6 +658,22 @@ def time_int8(dev) -> dict:
         print(f"int8 timing quant_matmul K=128 N=128 at {lanes} lane(s): {ms:.5f} ms (spread "
               f"{sp:.1%}), bound {mm_bound(lanes, 128)[0]:.5f} ms, torch._int_mm {lib:.5f} ms "
               f"(spread {lsp:.1%}), ratio to it {ms / lib:.2f}x")
+    # quantize_act beside the floor of a launch (a kernel that does nothing on
+    # the same grid) and a yardstick of its traffic (a cast of the same bytes
+    # to int8: the same reads and writes, not the same function)
+    for lanes, c in ((1, 128), (8, 128), (1, 416)):
+        x = dev_t((lanes, *LR, c), 2.0, torch.bfloat16)
+        sx = torch.full((lanes,), 6.0 / 127.0, device=dev)
+        (ms, sp), (fms, fsp), (cms, csp) = median_ms(
+            (lambda: quantize.quantize_act(x, sx), 1),
+            (lambda: quantize.launch_empty_grid(x), 1), lambda: x.to(torch.int8))
+        qb = bound(lanes * 3 * hw * c, 0)[0]
+        grid = quantize.quantize_plan(lanes, hw * c, sms=sms)["grid"]
+        print(f"int8 timing quantize_act C={c} at {lanes} lane(s), grid {grid}: {ms:.5f} ms "
+              f"(spread {sp:.1%}), bound {qb:.5f} ms ({qb / ms:.1%} of the time), empty kernel "
+              f"on the same grid {fms:.5f} ms (spread {fsp:.1%}; {ms / fms:.2f}x that floor), "
+              f"x.to(torch.int8) (yardstick of the traffic) {cms:.5f} ms (spread {csp:.1%}; "
+              f"ratio to it {ms / cms:.2f}x)")
     print(f"int8 timing: SM clock, max SM clock after = {sm_clocks()}")
 
     for name, o in out.items():

@@ -51,7 +51,7 @@ def _events(seed, g, n, hw):
 
 @pytest.mark.parametrize("hw,n", [((45, 80), 2048), ((180, 320), 32768)])
 def test_kernel_bit_exact_against_plain(cuda, hw, n):
-    """Integer addends below 2**24: any atomic order gives equal counts."""
+    """Integer counts below 2**24: any order of the adds gives equal counts."""
     ev = _events(3, 5, n, hw)
     xy, p = (torch.from_numpy(a).to(cuda) for a in compact_events(ev))
     evd = torch.from_numpy(ev).to(cuda)
@@ -63,6 +63,48 @@ def test_kernel_bit_exact_against_plain(cuda, hw, n):
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(got_raw, want)
     assert torch.equal(got.cpu(), batch_counts_from_compact(xy.cpu(), p.cpu(), hw))
+
+
+@pytest.mark.parametrize("name,g,n,hw,route", [
+    ("hot pixel", 4, 32768, (180, 320), "band"),
+    ("one window", 1, 32768, (180, 320), "band"),
+    ("one row", 5, 2048, (1, 320), "band"),
+    ("N odd, W odd", 3, 2047, (9, 13), "band"),
+    ("N = 4 mod 8", 3, 2044, (45, 80), "band"),
+    ("one pixel", 2, 512, (1, 1), "band"),
+    ("no events", 2, 0, (45, 80), "band"),
+    ("a row larger than shared memory", 2, 4096, (2, 30000), "event"),
+])
+def test_rasterizer_writes_every_element_of_a_garbage_output(cuda, name, g, n, hw, route):
+    """Nothing zero-fills the output: into a buffer full of NaN, the band
+    kernel (and, where the plan takes it, the per-event kernel) gives the
+    plain version's counts bit for bit, one launch a call."""
+    ev = _events(11, g, max(n, 16), hw)[:, :, :n]
+    if name == "hot pixel":
+        ev[:, 0], ev[:, 1] = 7, 9
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert rasterize.raster_plan(g, n, *hw, True, sms=sms)["route"] == route
+    xy, p = (torch.from_numpy(a).to(cuda) for a in compact_events(ev))
+    evd = torch.from_numpy(ev).to(cuda)
+    want = rasterize.counts_plain(xy[:, 0], xy[:, 1], p, hw)
+    junk = [torch.full((g, *hw, 2), float("nan"), device=cuda) for _ in range(2)]
+    before = rasterize.launches
+    got = rasterize.counts_from_compact(xy, p, hw, out=junk[0])
+    got_raw = rasterize.counts_from_events(evd, hw, out=junk[1])
+    fresh = rasterize.counts_from_compact(xy, p, hw)
+    assert rasterize.launches == before + 3
+    torch.cuda.synchronize()
+    assert got.data_ptr() == junk[0].data_ptr()
+    assert torch.equal(got, want) and torch.equal(got_raw, want) and torch.equal(fresh, want)
+
+
+def test_rasterizer_rejects_a_wrong_output_buffer(cuda):
+    xy = torch.zeros((1, 2, 4), dtype=torch.int16, device=cuda)
+    p = torch.zeros((1, 4), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="out: expected"):
+        rasterize.counts_from_compact(xy, p, (4, 4), out=torch.zeros((1, 4, 5, 2), device=cuda))
+    with pytest.raises(TypeError, match="out: expected"):
+        rasterize.counts_from_compact(xy, p, (4, 4), out=torch.zeros((1, 4, 4, 2), device=cuda).half())
 
 
 def test_kernel_wrapper_rejects_mixed_devices(cuda):
@@ -140,6 +182,47 @@ def test_quantize_act_bit_exact_against_plain(cuda, b, hw, c):
         assert quantize.launches == before + 1
         assert torch.equal(got, quantize.quantize_plain(x, sx, relu))
     assert torch.equal(quantize.quantize_act(x.float(), sx), quantize.quantize_plain(x, sx))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,skip", [((3, 1, 1, 131), 0), ((3, 2, 3, 131), 0), ((3, 1, 1, 7), 0),
+                                        ((2, 7, 13, 129), 0), ((8, 45, 80, 128), 0),
+                                        ((2, 9, 5, 37), 1), ((1, 1, 1, 65000), 3)])
+def test_quantize_act_head_and_tail_bit_exact_against_plain(cuda, dtype, shape, skip):
+    """Lanes that start off a 16-byte boundary (a scalar head, whole units,
+    a scalar tail), eight lanes, and views ``skip`` elements into a buffer
+    (input and output share no boundary: no vector part at all), with
+    half-steps of the scale, zeros and -0.0 among the values."""
+    rng = np.random.default_rng(8)
+    n = int(np.prod(shape))
+    flat = _act(rng, (skip + n,), cuda, dtype)
+    sx = _scales(rng, shape[0], cuda)
+    steps = (torch.arange(-130, 131, device=cuda) + 0.5) * sx[0]
+    k = min(n // 2, steps.numel())
+    flat[skip : skip + k] = steps[:k].to(dtype)
+    flat[skip + 1 :: 7] = 0.0
+    flat[skip + 2 :: 13] = -0.0
+    x = flat[skip:].view(shape)
+    for relu in (False, True):
+        before = quantize.launches
+        got = quantize.quantize_act(x, sx, relu)
+        assert quantize.launches == before + 1
+        assert torch.equal(got, quantize.quantize_plain(x, sx, relu))
+
+
+@pytest.mark.parametrize("scale", [6.0 / 127.0, 0.0371, 2.0**-4, 1e-12 / 127.0, 3.0e5])
+def test_quantize_act_every_bf16_value_as_plain(cuda, scale):
+    """Every finite bf16 value through the vector body (the shortcut of
+    ``quantize8`` and its fallback) and, as a view off the boundary, through
+    the scalar route, with and without the ReLU."""
+    bits = torch.arange(65536, dtype=torch.int32, device=cuda).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    sx = torch.tensor([scale], device=cuda)
+    for xin in (x[: x.numel() // 16 * 16].view(1, 1, -1, 16), x[3:].view(1, 1, 1, -1)):
+        for relu in (False, True):
+            assert torch.equal(quantize.quantize_act(xin, sx, relu),
+                               quantize.quantize_plain(xin, sx, relu))
 
 
 @pytest.mark.parametrize("b,m,k,n", [(1, 3600, 128, 128), (4, 3600, 256, 128), (2, 91, 131, 128),
