@@ -9,9 +9,10 @@
 The rollout is the stride-1 stateful pass of the reference scripts;
 ``--seql`` and ``--step_size`` are accepted for interface parity and do not
 change its outputs.  ``--dtype int8*`` runs the int8 serving modes (static
-scales calibrated on each file's first windows).  ``--ema`` and
-``--mesh_devices > 1`` are not ported yet and exit naming their ROADMAP.md
-item.
+scales calibrated on each file's first windows).  ``--model_path`` may be a
+training checkpoint directory of the port (``iteration_<N>/`` or ``best/``);
+``--ema`` serves its EMA.  ``--mesh_devices > 1`` is not ported yet and
+exits naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ def main(argv=None):
                         "(the same bound)")
     p.add_argument("--no_images", action="store_true", help="skip PNG streams")
     p.add_argument("--ema", action="store_true",
-                   help="not ported yet: needs Orbax train-state checkpoints")
+                   help="serve the EMA of a training checkpoint (requires trainer.ema "
+                        "in the run's recipe)")
     p.add_argument("--psnr", action="store_true", help="also track PSNR")
     p.add_argument("--ssim", action="store_true", help="also track SSIM")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -85,17 +87,15 @@ def main(argv=None):
     if args.mesh_devices > 1:
         raise SystemExit("--mesh_devices > 1: sharded rollouts are not ported yet "
                          "(ROADMAP.md Queue 1 item 8)")
-    if args.ema:
-        raise SystemExit("--ema: Orbax train-state checkpoints are not ported yet "
-                         "(ROADMAP.md Queue 1 item 7)")
     if args.seqn != 2:
         # the models read only the first two windows of a seqn-window
         print(f"note: seqn={args.seqn} behaves identically to seqn=2 "
               "(the model consumes two windows per step)")
     if args.infer_mode != 1:
         raise SystemExit(f"infer mode {args.infer_mode} not supported (reference parity)")
-    if not args.model_path or not os.path.isfile(args.model_path):
-        raise SystemExit("--model_path must point to a .pth or .npz checkpoint")
+    if not args.model_path or not os.path.exists(args.model_path):
+        raise SystemExit("--model_path must point to a .pth / .npz checkpoint or a "
+                         "training checkpoint directory")
 
     if args.data_list:
         with open(args.data_list) as f:
@@ -109,7 +109,7 @@ def main(argv=None):
 
     model = load_model_for_inference(
         args.model_path, args.scale, args.n_c, args.n_b, args.variant,
-        dtype=args.dtype, device=args.device,
+        dtype=args.dtype, device=args.device, use_ema=args.ema,
     )
     extra = tuple(m for m, on in (("psnr", args.psnr), ("ssim", args.ssim)) if on)
     engine = InferenceEngine(

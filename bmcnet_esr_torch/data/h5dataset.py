@@ -1,24 +1,32 @@
-"""Event window dataset over multi-scale HDF5 files (the inference path).
+"""Event window datasets over multi-scale HDF5 files.
 
 Counterpart of ``bmcnet_esr_tpu/data/h5dataset.py``: ``SequenceConfig``,
 ``DatasetConfig`` (with ``from_dict``), ``ScaleLayout``,
-``resolve_scale_layout`` and ``EventH5Dataset.get_window``, with the same
-windowing (``events`` and ``time`` modes), count-based GT alignment and
-fixed zero-padded ``[4, N]`` float32 windows.  ``h5py`` is imported when a
-file is opened, so the package imports without it.
+``resolve_scale_layout``, ``EventH5Dataset.get_window`` and
+``EventSequenceDataset.get_clip``, with the same windowing (``events`` and
+``time`` modes), count-based GT alignment, fixed zero-padded ``[4, N]``
+float32 windows and the same numpy random draws: seeded H/V/polarity flips
+(one ``default_rng(seed + offset)`` draw per mechanism), uniform noise
+events (``seed + 17``), the running hot-pixel filter (counted through
+:func:`bmcnet_esr_torch.ops.encodings.events_to_channels` on the CPU, in the
+same y-flipped raster coordinates as the JAX package's native counter) and
+pause windows.  ``h5py`` is imported when a file is opened, so the package
+imports without it.
 
 Not ported yet (they raise ``NotImplementedError``, ROADMAP.md Queue 1
-item 4): ``frame`` mode, ``need_gt_frame``, augmentation, noise, the hot
-pixel filter, pause items, ``EventSequenceDataset`` and the host-side
-auxiliary encodings.
+item 4): ``frame`` mode, ``need_gt_frame`` and the host-side auxiliary
+encodings other than the count image.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from bmcnet_esr_torch.ops.encodings import events_to_channels
 
 DATA_TODO = "not ported yet (ROADMAP.md Queue 1 item 4)"
 
@@ -239,10 +247,6 @@ class EventH5Dataset:
             name for name, on in (
                 ("mode='frame'", config.mode == "frame"),
                 ("need_gt_frame", config.need_gt_frame),
-                ("augment", config.augment.enabled),
-                ("noise", config.noise.enabled),
-                ("hot_filter", config.hot_filter.enabled),
-                ("pause", config.sequence.pause.enabled),
             ) if on
         ]
         if unported:
@@ -288,7 +292,14 @@ class EventH5Dataset:
             )
         else:
             self.gt_window = config.scale**2 * base_window
-        self.padded_window = base_window
+        self.noise_events = (
+            int(base_window * config.noise.noise_level) if config.noise.enabled else 0
+        )
+        self.padded_window = base_window + self.noise_events
+
+        # hot-pixel filter running state (reference h5dataset.py:528-548)
+        self.hot_events = np.zeros(self.layout.inp_resolution, np.float32)
+        self.hot_idx = 0
 
     def _compute_windows(self, f) -> None:
         cfg = self.config
@@ -357,6 +368,39 @@ class EventH5Dataset:
             ]
         )
 
+    # -- transforms --------------------------------------------------------
+
+    def _augment(self, events: np.ndarray, resolution, seed: int) -> np.ndarray:
+        """Seeded H/V/polarity flips (reference h5dataset.py:559-578): one
+        independent draw per mechanism from ``seed + offset``, so all windows
+        sharing a seed flip identically."""
+        cfg = self.config.augment
+        xs, ys, ts, ps = events
+        for offset, (mech, prob) in enumerate(zip(cfg.mechanisms, cfg.probabilities)):
+            u = np.random.default_rng(seed + offset).random()
+            if u >= prob:
+                continue
+            if mech == "Horizontal":
+                xs = resolution[1] - 1 - xs
+            elif mech == "Vertical":
+                ys = resolution[0] - 1 - ys
+            elif mech == "Polarity":
+                ps = -ps
+        return np.stack([xs, ys, ts, ps])
+
+    def augment_frame(self, img: np.ndarray, seed: int) -> np.ndarray:
+        """The same H/V flips on an ``[H, W(, C)]`` image (polarity ignored)."""
+        cfg = self.config.augment
+        for offset, (mech, prob) in enumerate(zip(cfg.mechanisms, cfg.probabilities)):
+            u = np.random.default_rng(seed + offset).random()
+            if u >= prob:
+                continue
+            if mech == "Horizontal":
+                img = np.flip(img, 1)
+            elif mech == "Vertical":
+                img = np.flip(img, 0)
+        return np.ascontiguousarray(img)
+
     @staticmethod
     def _normalize_ts(events: np.ndarray) -> np.ndarray:
         """ts -> [0, 1] within the window (reference base_dataset.py:24-31)."""
@@ -367,6 +411,20 @@ class EventH5Dataset:
         events[2] = (ts - ts[0]) / (ts[-1] - ts[0] + 1e-6)
         return events
 
+    def _noise_events(self, resolution, seed: int) -> np.ndarray:
+        """Uniform spurious events appended to the window (reference
+        h5dataset.py:623-634: x, y uniform, t = 1, p in {-1, +1})."""
+        n = self.noise_events
+        u = np.random.default_rng(seed).random((4, n))
+        return np.stack(
+            [
+                np.floor(u[0] * resolution[1]).astype(np.float32),
+                np.floor(u[1] * resolution[0]).astype(np.float32),
+                np.ones(n, np.float32),
+                (np.floor(u[3] * 2) * 2 - 1).astype(np.float32),
+            ]
+        )
+
     @staticmethod
     def _pad(events: np.ndarray, size: int) -> Tuple[np.ndarray, int]:
         n = events.shape[1]
@@ -376,19 +434,128 @@ class EventH5Dataset:
         out[:, :n] = events
         return out, n
 
-    def get_window(self, index: int) -> Dict:
+    # -- hot-pixel filter --------------------------------------------------
+
+    @staticmethod
+    def create_cnt_encoding(events: np.ndarray, resolution) -> np.ndarray:
+        """``[2, H, W]`` float32 count image of ``[4, N]`` events
+        (h5dataset.py:518-526): y flipped, out-of-range events dropped."""
+        xs, ys, _, ps = (torch.from_numpy(np.ascontiguousarray(r, np.float32)) for r in events)
+        return events_to_channels(xs, ys, ps, tuple(resolution)).numpy()
+
+    def update_hot_mask(self, count_image: np.ndarray, max_px=100, min_obvs=5, max_rate=0.8):
+        """Running hot-pixel mask over observed activity
+        (reference h5dataset.py:528-548 + encodings.py:349-364)."""
+        self.hot_events += (np.abs(count_image).sum(0) > 0).astype(np.float32)
+        self.hot_idx += 1
+        rate = self.hot_events / self.hot_idx
+        mask = np.ones_like(rate)
+        if self.hot_idx > min_obvs:
+            flat = rate.reshape(-1)
+            order = np.argsort(flat)[::-1][:max_px]
+            hot = order[flat[order] > max_rate]
+            mask.reshape(-1)[hot] = 0.0
+        return mask
+
+    def _apply_hot_filter(self, events: np.ndarray) -> np.ndarray:
+        """Update the per-file running rate from this window's count image,
+        then zero the polarity of events on masked pixels (every encoder
+        ignores ``p == 0``, so shapes stay static).  The mask lives in
+        y-flipped raster coordinates; the lookup flips accordingly."""
+        hf = self.config.hot_filter
+        res = self.layout.inp_resolution
+        cnt = self.create_cnt_encoding(events, res)
+        mask = self.update_hot_mask(cnt, hf.max_px, hf.min_obvs, hf.max_rate)
+        xs, ys, _, ps = events
+        xi = np.clip(xs.astype(np.int64), 0, res[1] - 1)
+        yi = np.clip(res[0] - 1 - ys.astype(np.int64), 0, res[0] - 1)
+        keep = mask[yi, xi] > 0
+        out = events.copy()
+        out[3] = np.where(keep, ps, 0.0)
+        return out
+
+    # -- items -------------------------------------------------------------
+
+    def get_window(self, index: int, *, seed: Optional[int] = None, pause: bool = False) -> Dict:
         """One event window: ``inp_events [4, padded_window]``, ``inp_len``
         and ``gt_events [4, gt_window]``, ``gt_len`` (a ``[4, 1]`` zero
-        sentinel without GT events)."""
+        sentinel without GT events).  ``seed`` drives augmentation and noise
+        (a fresh one when ``None``); ``pause`` zeroes the input window."""
+        if seed is None:
+            seed = int(np.random.default_rng().integers(0, 2**31))
+        cfg = self.config
         i0, i1 = self.event_indices[index]
         item: Dict = {}
-        ev = self._normalize_ts(self._read_events(self.layout.inp_prefix, i0, i1))
-        item["inp_events"], item["inp_len"] = self._pad(ev, self.padded_window)
-        if self.config.need_gt_events:
+        if pause:
+            # zeroed input, same shapes (reference Pause, h5dataset.py:305-306)
+            item["inp_events"], item["inp_len"] = np.zeros((4, self.padded_window), np.float32), 0
+        else:
+            ev = self._read_events(self.layout.inp_prefix, i0, i1)
+            if cfg.hot_filter.enabled:
+                ev = self._apply_hot_filter(ev)
+            if cfg.augment.enabled:
+                ev = self._augment(ev, self.layout.inp_resolution, seed)
+            ev = self._normalize_ts(ev)
+            if self.noise_events:
+                noise = self._noise_events(self.layout.inp_resolution, seed + 17)
+                ev = np.concatenate([ev, noise], axis=1)
+            item["inp_events"], item["inp_len"] = self._pad(ev, self.padded_window)
+        if cfg.need_gt_events:
             g0, g1 = self.gt_event_indices[index]
-            gt = self._normalize_ts(self._read_events(self.layout.gt_prefix, g0, g1))
+            gt = self._read_events(self.layout.gt_prefix, g0, g1)
+            if cfg.augment.enabled:
+                gt = self._augment(gt, self.layout.gt_resolution, seed)
+            gt = self._normalize_ts(gt)
             item["gt_events"], item["gt_len"] = self._pad(gt, self.gt_window)
         else:
             item["gt_events"] = np.zeros((4, 1), np.float32)
             item["gt_len"] = 0
         return item
+
+
+class EventSequenceDataset:
+    """Length-L temporal clips with optional stochastic pause replay.
+
+    Parity: reference ``SequenceDataset`` (``h5dataset.py:637-700``) and
+    ``bmcnet_esr_tpu/data/h5dataset.py:682-729``: clip i starts at window
+    ``i * step_size``; one shared seed per clip (the clip rng's first draw)
+    flips every window alike; when paused, the previous window index repeats
+    with zeroed input; L clamps to the file length."""
+
+    def __init__(self, h5_path: str, config: DatasetConfig):
+        self.dataset = EventH5Dataset(h5_path, config)
+        self.config = config
+        seq = config.sequence
+        self.L = seq.sequence_length
+        self.step_size = seq.step_size if seq.step_size is not None else self.L
+        if self.L >= len(self.dataset):
+            self.length = 1
+            self.L = len(self.dataset)
+        else:
+            self.length = (len(self.dataset) - self.L) // self.step_size + 1
+
+    def __len__(self) -> int:
+        return self.length
+
+    def get_clip(self, i: int, *, seed: Optional[int] = None) -> List[Dict]:
+        if not 0 <= i < self.length:
+            raise IndexError(i)
+        rng = np.random.default_rng(seed)
+        shared_seed = int(rng.integers(0, 2**31))
+        pause_cfg = self.config.sequence.pause
+
+        j = i * self.step_size
+        items = [self.dataset.get_window(j, seed=shared_seed)]
+        k = 0
+        paused = False
+        for _ in range(self.L - 1):
+            if pause_cfg.enabled:
+                p = (pause_cfg.proba_pause_when_paused if paused
+                     else pause_cfg.proba_pause_when_running)
+                paused = rng.random() < p
+            if paused:
+                items.append(self.dataset.get_window(j + k, seed=shared_seed, pause=True))
+            else:
+                k += 1
+                items.append(self.dataset.get_window(j + k, seed=shared_seed))
+        return items

@@ -28,8 +28,10 @@ metrics come back to the host.  Behaviour kept from the JAX engine:
   window pairs of every file or batched group (``engine.py:260-283``),
   never overwriting scales the caller installed.
 
-Not ported: Orbax / EMA checkpoints (ROADMAP.md Queue 1 item 7) and
-``mesh=`` sharding (item 8).
+``load_model_for_inference`` reads the port's training checkpoints too,
+their parameters or, with ``use_ema``, their EMA.  Not ported: Orbax
+checkpoints (they need JAX; ROADMAP.md Queue 1 item 7) and ``mesh=``
+sharding (item 8).
 """
 
 from __future__ import annotations
@@ -88,10 +90,14 @@ def load_model_for_inference(
     variant: str = "full",
     dtype: str = "float32",
     device="cuda",
+    use_ema: bool = False,
 ) -> torch.nn.Module:
-    """Build the model, load a ``.pth`` / ``.npz`` checkpoint and place it on
-    ``device`` (channels-last, eval mode).  The JAX version returns
-    ``(model, variables)``; here the weights live in the module.
+    """Build the model, load a ``.pth`` / ``.npz`` checkpoint or a training
+    checkpoint directory of the port, and place it on ``device``
+    (channels-last, eval mode).  The JAX version returns ``(model,
+    variables)``; here the weights live in the module.  ``use_ema`` serves
+    the EMA a training run kept (``trainer.ema``) and refuses a checkpoint
+    without one.
 
     ``dtype='bfloat16'`` is the serving path (float32 parameters, bf16
     activations); ``float32`` is the parity default and turns TF32 off.
@@ -106,7 +112,7 @@ def load_model_for_inference(
     quant = INT8_DTYPES.get(dtype, False)
     model = cls(scale=scale, n_c=n_c, n_b=n_b, dtype=DTYPES.get(dtype, torch.bfloat16),
                 quant=quant)
-    model.load_state_dict(load_checkpoint(checkpoint_path), strict=True)
+    model.load_state_dict(load_checkpoint(checkpoint_path, use_ema=use_ema), strict=True)
     strict_fp32()
     return model.to(dev, memory_format=torch.channels_last).eval()
 

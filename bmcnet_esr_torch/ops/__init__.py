@@ -1,10 +1,11 @@
-"""Event and image ops of the inference path (JAX layouts at every public
+"""Event and image ops of the inference and training paths (JAX layouts at every public
 function: events ``[..., 4, N]``, count images ``[..., H, W, 2]``)."""
 
 from bmcnet_esr_torch.ops.batch import (
     batch_counts_from_compact,
     batch_events_to_counts,
     compact_events,
+    counts_from_batch,
     sliding_pairs,
 )
 from bmcnet_esr_torch.ops.encodings import events_to_channels, events_to_image
@@ -13,6 +14,7 @@ from bmcnet_esr_torch.ops.shuffle import pixel_shuffle, pixel_unshuffle
 
 __all__ = [
     "batch_counts_from_compact", "batch_events_to_counts", "compact_events",
-    "sliding_pairs", "events_to_channels", "events_to_image", "resize_bicubic",
-    "resize_bilinear", "upsample_bilinear", "pixel_shuffle", "pixel_unshuffle",
+    "counts_from_batch", "sliding_pairs", "events_to_channels", "events_to_image",
+    "resize_bicubic", "resize_bilinear", "upsample_bilinear", "pixel_shuffle",
+    "pixel_unshuffle",
 ]

@@ -5,8 +5,9 @@ host-side transfer compaction (``batch.py:62-91``, kept bit for bit);
 ``batch_events_to_counts`` / ``batch_counts_from_compact`` rasterize
 ``[..., 4, N]`` raw or compact windows into ``[..., H, W, 2]`` NHWC count
 images through :mod:`bmcnet_esr_torch.kernels.rasterize` (the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors); ``sliding_pairs`` is the
-stride-1 window pairing.
+CUDA tensors, its plain version for CPU tensors); ``counts_from_batch``
+picks the form a batch carries; ``sliding_pairs`` is the stride-1 window
+pairing.
 """
 
 from __future__ import annotations
@@ -57,6 +58,15 @@ def batch_counts_from_compact(
     fp = p.reshape((-1, p.shape[-1])).contiguous()
     imgs = rasterize.counts_from_compact(fxy, fp, sensor_size)
     return imgs.reshape(tuple(lead) + tuple(imgs.shape[1:]))
+
+
+def counts_from_batch(batch, prefix: str, sensor_size: Tuple[int, int]) -> torch.Tensor:
+    """Rasterize ``batch[f'{prefix}_events']`` or its compact form
+    (``{prefix}_xy`` + ``{prefix}_p``): one kernel launch for all the
+    ``[B, L]`` windows of a batch."""
+    if f"{prefix}_xy" in batch:
+        return batch_counts_from_compact(batch[f"{prefix}_xy"], batch[f"{prefix}_p"], sensor_size)
+    return batch_events_to_counts(batch[f"{prefix}_events"], sensor_size)
 
 
 def sliding_pairs(frames: torch.Tensor, seqn: int = 2) -> torch.Tensor:

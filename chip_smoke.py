@@ -41,12 +41,22 @@ failure:
 6. each kernel's time against its plain version, its bound and a library
    call, at the main path's shapes (medians of three repeats with their
    spread, yardsticks timed in turns with the kernels, the SM clock before
-   and after).  It runs between phases 3 and 4, because the profiler loses
-   device records late in a long process; the JSON line with all of it is
-   printed at the end.
+   and after), and the rasterizer's at the training path's shapes.  It runs
+   between phases 3 and 4, because the profiler loses device records late in
+   a long process; the JSON line with all of it is printed at the end;
+7. the training path (after phase 6, before phase 4): BPTT gradients of
+   both variants against ``tests/goldens/grad_goldens.npz`` and the first 25
+   Adam iterations against its losses; the NFS recipe
+   (``configs/train_nfs.yml``, written out in :func:`nfs_recipe`) at full
+   width through ``Trainer`` on seeded in-memory batches: 13 iterations with
+   a validation pass and a checkpoint, a resume from it that repeats the
+   last two iterations exactly, then float32 and bfloat16 with remat off and
+   on, each timed (ms/iteration, device busy and idle share, launches, peak
+   memory) with a falling loss on a fixed batch and exactly two rasterizer
+   kernels an iteration in the profile.
 
 The last line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a
-subset of phases 2b-6 after the build, for work on one of them, and then
+subset of phases 2b-7 after the build, for work on one of them, and then
 prints no result line.
 """
 
@@ -66,6 +76,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data-sheet memory rate
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
 LR, GT, SCALE, N_LR = (45, 80), (180, 320), 4, 2048
 N_WINDOWS, CHUNK, CALIB_STEPS = 64, 32, 16
+TRAIN_B, TRAIN_L = 2, 9  # configs/train_nfs.yml: batch 2, sequence_length 9
 GOLDEN_TOL = dict(rtol=1e-3, atol=2e-5)  # GPU conv summation order vs CPU goldens
 INT8_BOUND = 5e-2  # rel-RMSE of an int8 dtype against float32 (TestInt8Serving)
 FULL_INT8 = ("int8", "int8_pall", "int8_chainq")
@@ -106,6 +117,51 @@ def expected_launches(variant: str, dtype: str, n_windows: int, calib_steps: int
         "quantize_act": n_windows * quantize,
         "quant_matmul": steps * n1 if dtype in ("int8_p1x1", "int8_pall") else 0,
         "quant_conv3x3": steps * n3 if dtype.startswith("int8") else 0,
+    }
+
+
+def nfs_recipe() -> dict:
+    """``configs/train_nfs.yml`` as ``yaml.safe_load`` reads it (anchors
+    resolved), written out here because the GPU machine may lack PyYAML and
+    has no h5py; ``tests/test_torch_training.py`` holds the two equal."""
+    aug = ["Horizontal", "Vertical", "Polarity"]
+
+    def dataset(augment: bool) -> dict:
+        return {
+            "scale": 4, "ori_scale": "down8", "time_bins": 1, "need_gt_frame": False,
+            "need_gt_events": True, "mode": "events", "window": 2048, "sliding_window": 1024,
+            "data_augment": {"enabled": augment, "augment": list(aug),
+                             "augment_prob": [0.5, 0.5, 0.5]},
+            "sequence": {"sequence_length": 9, "seqn": 2, "step_size": None,
+                         "pause": {"enabled": False, "proba_pause_when_running": 0.05,
+                                   "proba_pause_when_paused": 0.9}},
+        }
+
+    def loader(split: str, train: bool) -> dict:
+        return {"path_to_datalist_txt": f"datalist/{split}_nfs.txt", "batch_size": 2,
+                "shuffle": train, "num_workers": 4, "drop_last": train,
+                "dataset": dataset(train)}
+
+    return {
+        "experiment": "BMCNet_nfs",
+        "SCALE": 4, "SEQN": 2, "SEQL": 9, "TIME_BINS": 1, "ORI_SCALE": "down8",
+        "MODE": "events", "WINDOW": 2048, "SLIDING_WINDOW": 1024, "NEED_GT_FRAME": False,
+        "NEED_GT_EVENTS": True, "PATH_TO_OUTPUT": "runs/",
+        "PATH_TO_TRAIN": "datalist/train_nfs.txt", "PATH_TO_VALID": "datalist/valid_nfs.txt",
+        "model": {"name": "BMCNet_syn_4x", "args": {"variant": "full", "n_c": 128, "n_b": 5}},
+        "optimizer": {"name": "Adam", "args": {"lr": 1e-4, "weight_decay": 1e-5,
+                                               "amsgrad": True}},
+        "lr_scheduler": {"name": "ExponentialLR", "args": {"gamma": 0.95}},
+        "trainer": {
+            "output_path": "runs/", "remat": False,
+            "iteration_based_train": {"enabled": True, "iterations": 100000,
+                                      "save_period": 5000, "train_log_step": 50,
+                                      "valid_log_step": 50, "valid_step": 1000,
+                                      "lr_change_rate": 4000},
+            "monitor": "min valid_loss", "early_stop": 100000000, "tensorboard": True,
+        },
+        "train_dataloader": loader("train", True),
+        "valid_dataloader": loader("valid", False),
     }
 
 
@@ -236,6 +292,9 @@ def phase_kernels(dev):
         "n_4_mod_8": (random_windows(rng, 3, 2044, LR), LR),
         "one_pixel_image": (random_windows(rng, 2, 512, (1, 1)), (1, 1)),
         "per_event_route": (random_windows(rng, 2, 4096, wide), wide),
+        # one training batch: B * L windows in one call
+        "train_lr": (random_windows(rng, TRAIN_B * TRAIN_L, N_LR, LR, pad=64), LR),
+        "train_gt": (random_windows(rng, TRAIN_B * TRAIN_L, SCALE**2 * N_LR, GT, pad=512), GT),
     }
     err = 0.0
     inputs = {}
@@ -304,6 +363,28 @@ def device_records(fn) -> dict:
     return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def raster_bound_ms(g: int, n: int, h: int, w: int) -> float:
+    """The rasterizer's byte bound: compact events read once (5 bytes an
+    event), the float32 image written once."""
+    return (g * n * 5 + g * h * w * 2 * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def index_put_ms(xy, p, hw) -> float:
+    """The library yardstick: one ``index_put_`` scatter into a fresh zero
+    image, with the flat indices and values computed beforehand (not timed)."""
+    import torch
+
+    h, w = hw
+    g, _, n = xy.shape
+    x, y = xy[:, 0].long(), xy[:, 1].long()
+    valid = (x >= 0) & (x < w) & (y >= 0) & (y < h) & (p != 0)
+    gi = torch.arange(g, device=xy.device)[:, None].expand(g, n)
+    idx = ((gi * h + (h - 1 - y)) * w + x) * 2 + (p < 0).long()
+    idx, val = idx[valid], (p[valid].float() ** 2)
+    return device_ms(lambda: torch.zeros(g * h * w * 2, device=xy.device)
+                     .index_put_((idx,), val, accumulate=True))
+
+
 def time_rasterizer(inputs) -> dict:
     """Kernel, plain and library times at the main path's chunk shapes (one
     LR call + one GT call), beside the byte bound; the kept per-event kernel
@@ -341,16 +422,7 @@ def time_rasterizer(inputs) -> dict:
             continue
         ev = cuda_ms(lambda: rasterize.counts_from_compact(xy, p, (h, w)))
         plain = device_ms(lambda: rasterize.counts_plain(xy[:, 0], xy[:, 1], p, (h, w)))
-        # library yardstick: one index_put_ scatter into a fresh zero image,
-        # with the flat indices and values computed beforehand (not timed)
-        x, y = xy[:, 0].long(), xy[:, 1].long()
-        valid = (x >= 0) & (x < w) & (y >= 0) & (y < h) & (p != 0)
-        gi = torch.arange(g, device=xy.device)[:, None].expand(g, n)
-        idx = ((gi * h + (h - 1 - y)) * w + x) * 2 + (p < 0).long()
-        idx, val = idx[valid], (p[valid].float() ** 2)
-        lib = device_ms(lambda: torch.zeros(g * h * w * 2, device=xy.device)
-                        .index_put_((idx,), val, accumulate=True))
-        bound = (g * n * 5 + g * h * w * 2 * 4) / HBM_BYTES_PER_S * 1e3
+        lib, bound = index_put_ms(xy, p, (h, w)), raster_bound_ms(g, n, h, w)
         print(f"rasterize timing {name}: band kernel {ms:.5f} ms on the device (spread {sp:.1%}; "
               f"{ev:.5f} ms per call back to back, host included), per-event kernel with its "
               f"memset {ems:.5f} ms (spread {esp:.1%}), plain {plain:.5f} ms, index_put_ "
@@ -361,6 +433,29 @@ def time_rasterizer(inputs) -> dict:
     print(f"rasterize timing LR + GT chunk: band kernel {out['ms']:.5f} ms, per-event kernel "
           f"{out['event_ms']:.5f} ms, bound {out['bound_ms']:.5f} ms "
           f"({out['bound_ms'] / out['ms']:.1%} of the time)")
+    # one training batch (B * L windows a call, the two calls of an iteration)
+    train = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for name in ("train_lr", "train_gt"):
+        xy, p, (h, w) = inputs[name]
+        g, _, n = xy.shape
+        ((ms, sp),) = median_ms((lambda: rasterize.counts_from_compact(xy, p, (h, w)), 1))
+        raw = torch.zeros((g, 4, n), device=xy.device)
+        raw[:, 0], raw[:, 1], raw[:, 3] = xy[:, 0].float(), xy[:, 1].float(), p.float()
+        ((rms, rsp),) = median_ms((lambda: rasterize.counts_from_events(raw, (h, w)), 1))
+        plain = device_ms(lambda: rasterize.counts_plain(xy[:, 0], xy[:, 1], p, (h, w)))
+        lib, bound = index_put_ms(xy, p, (h, w)), raster_bound_ms(g, n, h, w)
+        plan = rasterize.raster_plan(g, n, h, w, True, sms=torch.cuda.get_device_properties(
+            xy.device).multi_processor_count)
+        print(f"rasterize timing {name} (G={g} windows of one training batch, N={n}, {h}x{w}, "
+              f"{plan['grid']} blocks of {plan['rows']} rows): band kernel {ms:.5f} ms (spread "
+              f"{sp:.1%}), raw float32 form {rms:.5f} ms (spread {rsp:.1%}), plain {plain:.5f} ms, "
+              f"index_put_ {lib:.5f} ms, bound {bound:.5f} ms ({bound / ms:.1%} of the time)")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
+            train[k] += v
+    print(f"rasterize timing per training iteration (LR + GT call): {train['ms']:.5f} ms, plain "
+          f"{train['plain_ms']:.5f} ms, index_put_ {train['library_ms']:.5f} ms, bound "
+          f"{train['bound_ms']:.5f} ms ({train['bound_ms'] / train['ms']:.1%} of the time)")
+    out["train"] = train
     return out
 
 
@@ -915,6 +1010,313 @@ def profile_rollout(name: str, eng, load_chunk, n: int) -> None:
     _profiled(lambda: eng.infer_windows(load_chunk, n, LR, GT), n, name, "window")
 
 
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_grad_parity.py's bound, CPU and card alike
+TRAJ_RTOL = 1e-5  # the first 25 iterations of the Adam trajectory, as on the CPU
+RESUME_RTOL = 1e-6  # resumed against uninterrupted losses, deterministic cuDNN
+
+
+class MemoryLoader:
+    """In-memory stand-in for ``SequenceLoader``: the same batches every
+    epoch, the first one ``start`` batches in (a resumed run picks up where
+    the uninterrupted one was)."""
+
+    compact = True
+
+    def __init__(self, batches, start: int = 0, pad_last: bool = False):
+        self.batches, self.start, self.pad_last = batches, start, pad_last
+        self.inp_resolution, self.gt_resolution, self.seqn = LR, GT, 2
+        self.batch_size = batches[0]["inp_xy"].shape[0]
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        for k in range(len(self.batches)):
+            yield self.batches[(self.start + k) % len(self.batches)]
+
+
+def train_batches(rng, n: int, mask=None) -> list:
+    """``n`` batches of the NFS recipe's shapes in the compact transfer form:
+    B x L windows of 2048 LR events at 45x80 and 32768 GT events at 180x320."""
+    import numpy as np
+
+    from bmcnet_esr_torch.ops.batch import compact_events
+
+    out = []
+    for _ in range(n):
+        batch = {}
+        for prefix, n_ev, hw in (("inp", N_LR, LR), ("gt", SCALE**2 * N_LR, GT)):
+            ev = random_windows(rng, TRAIN_B * TRAIN_L, n_ev, hw, pad=n_ev // 32)
+            xy, p = compact_events(ev.reshape(TRAIN_B, TRAIN_L, 4, n_ev))
+            batch[f"{prefix}_xy"], batch[f"{prefix}_p"] = xy, p
+        if mask is not None:
+            batch["clip_mask"] = np.asarray(mask, np.float32)
+        out.append(batch)
+    return out
+
+
+def _recipe(work: str, iterations: int, save_period: int, valid_step: int = 1000,
+            dtype: str = "float32", remat: bool = False) -> dict:
+    cfg = nfs_recipe()
+    icfg = cfg["trainer"]["iteration_based_train"]
+    icfg.update(iterations=iterations, save_period=save_period, valid_step=valid_step)
+    cfg["trainer"].update(output_path=work, remat=remat)
+    if dtype != "float32":
+        cfg["model"]["args"]["dtype"] = dtype
+    return cfg
+
+
+def _recorded(trainer, events=None):
+    """Wrap ``trainer.train_step`` to keep each step's device metrics (and,
+    with ``events``, a CUDA event recorded after each step)."""
+    import torch
+
+    metrics, step = [], trainer.train_step
+
+    def recording(state, batch):
+        state, m = step(state, batch)
+        metrics.append(m)
+        if events is not None:
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+            events.append(done)
+        return state, m
+
+    trainer.train_step = recording
+    return metrics
+
+
+def profile_training(tr, start: int, n: int) -> dict:
+    """Device records of ``n`` iterations of ``tr.train`` from ``start``,
+    after one more that warms the profiler up (device activity only: host
+    records slow a loop of ~40,000 launches an iteration twice over).  The
+    device is drained at the window's two edges, so the trace holds exactly
+    the window's kernels.  Per iteration: the device's timeline from the end
+    of the warm-up iteration to the end of the last, its busy time (kernels,
+    copies, fills), the idle share, the records, the rasterizer's band
+    kernels, and the kernels that take most of the time.  The profiler here
+    now and then drops records of the kernels launched through ctypes (seen
+    late in a long process), so a trace whose band kernels are not two an
+    iteration is taken again, at most twice, and said so.  The profiled
+    iterations write no checkpoint."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    step = tr.train_step
+    tr.save = lambda *a, **k: ""
+    for attempt in range(3):
+        marks = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
+            def stepping(state, batch):
+                state, m = step(state, batch)
+                done = torch.cuda.Event(enable_timing=True)
+                done.record()
+                marks.append(done)
+                if len(marks) in (1, n + 1):  # the window's edges
+                    torch.cuda.synchronize()
+                prof.step()
+                return state, m
+
+            tr.train_step, tr.iterations = stepping, start + 1 + n
+            tr.train(start_iteration=start)
+            torch.cuda.synchronize()
+        start += 1 + n
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        band = sum(e.count for e in rows if "band_kernel" in e.key) / n
+        if band == 2:
+            break
+        print(f"profile_training: trace {attempt + 1} holds {band} rasterizer kernels an "
+              "iteration of the 2 launched, again")
+    span = marks[0].elapsed_time(marks[-1]) / n
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:4]
+    return {
+        "span_ms": span, "busy_ms": busy, "idle": 1 - busy / span, "band": band,
+        "launches": sum(e.count for e in rows) / n,
+        "top": "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3 / n:.3f} ms "
+                         f"x{e.count / n:.0f}" for e in top),
+    }
+
+
+def train_goldens(dev) -> None:
+    """BPTT gradients of both variants against the torch reference goldens,
+    and the first 25 Adam(amsgrad, wd) iterations against their losses."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.models import BMCNet, BMCNetPlain, convert_torch_state_dict
+    from bmcnet_esr_torch.training.train_step import _rollout_losses
+
+    with np.load(os.path.join(ROOT, "tests", "goldens", "grad_goldens.npz")) as z:
+        g = {k: z[k] for k in z.files}
+    meta = [int(v) for v in g["meta"][:3]]
+    inp, gt = (torch.from_numpy(np.ascontiguousarray(np.transpose(g[k], (1, 0, 3, 4, 2))))
+               .to(dev) for k in ("frames", "gt_frames"))
+
+    def model(variant):
+        cls = BMCNetPlain if variant == "plain" else BMCNet
+        m = cls(scale=meta[0], n_c=meta[1], n_b=meta[2])
+        n = len(f"{variant}/sd/")
+        m.load_state_dict(convert_torch_state_dict(
+            {k[n:]: v for k, v in g.items() if k.startswith(f"{variant}/sd/")}))
+        return m.to(dev, memory_format=torch.channels_last)
+
+    def loss_of(m):
+        _, totals = _rollout_losses(m, inp, gt, 2, tuple(gt.shape[2:4]), use_remat=False)
+        return totals.mean(1).sum()
+
+    for variant in ("plain", "full"):
+        m = model(variant)
+        loss = loss_of(m)
+        loss.backward()
+        n = len(f"{variant}/grad/")
+        want = convert_torch_state_dict(
+            {k[n:]: v for k, v in g.items() if k.startswith(f"{variant}/grad/")})
+        worst, where = 0.0, ""
+        for name, p in m.named_parameters():
+            w = want[name].to(dev)
+            r = float(((p.grad - w).abs() / (GRAD_TOL["atol"] + GRAD_TOL["rtol"] * w.abs())).max())
+            worst, where = max((worst, where), (r, name))
+        rel = abs(float(loss.detach()) / float(g[f"{variant}/loss"]) - 1)
+        print(f"train goldens {variant}: BPTT gradient at {worst:.3f} of the bound {GRAD_TOL} "
+              f"(worst {where}), loss rel |d| {rel:.2e}")
+        check(worst <= 1.0, f"{variant} BPTT gradient outside {GRAD_TOL}: {worst:.3f} at {where}")
+        check(rel <= 1e-6, f"{variant} BPTT loss rel |d| {rel}")
+
+    m = model("plain")
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3, weight_decay=1e-5, amsgrad=True)
+    losses = []
+    for _ in range(25):
+        opt.zero_grad()
+        loss = loss_of(m)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    rel = float(np.max(np.abs(np.asarray(losses) / g["traj_losses"][:25] - 1)))
+    print(f"train goldens trajectory: 25 Adam(amsgrad, wd) iterations, max rel |d| {rel:.2e} "
+          f"against the reference losses (bound rtol {TRAJ_RTOL})")
+    check(rel <= TRAJ_RTOL, f"trajectory rel |d| {rel} > {TRAJ_RTOL}")
+
+
+def phase_train(dev, card: str) -> dict:
+    """The training path at the NFS recipe's full width (full BMCNet, n_c=128,
+    n_b=5, x4, batch 2, L=9, 45x80 -> 180x320) through ``Trainer``, on
+    in-memory batches.  Returns the rasterizer's launches on this path."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.kernels import rasterize
+    from bmcnet_esr_torch.training import Trainer
+    from bmcnet_esr_torch.training.checkpoint import latest_checkpoint
+    from bmcnet_esr_torch.training.config import RunConfig
+
+    mods = {n: importlib.import_module(f"bmcnet_esr_torch.kernels.{n}") for n in KERNEL_MODULES}
+    train_goldens(dev)
+    rng = np.random.default_rng(7)
+    data = train_batches(rng, 4)
+    valid = train_batches(rng, 1, mask=[1.0, 1.0]) + train_batches(rng, 1, mask=[1.0, 0.0])
+    work = os.path.join(ROOT, "outputs", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        # 13 iterations with one validation pass and a checkpoint after
+        # iteration 10; then a second trainer resumes from that checkpoint and
+        # runs iterations 11 and 12 again.  cuDNN deterministic for both runs.
+        # The recipe's tensorboard stays on (scalars dropped where no backend).
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        tr = Trainer(RunConfig(_recipe(tmp, 13, 10, valid_step=10), runid="a"),
+                     train_loader=MemoryLoader(data),
+                     valid_loader=MemoryLoader(valid, pad_last=True), seed=0, device=dev)
+        metrics = _recorded(tr)
+        for mod in mods.values():
+            mod.launches = 0
+        tr.train()
+        got = {KERNEL_NAMES[n]: mod.launches for n, mod in mods.items()}
+        want = 2 * (13 + len(valid))
+        check(got["rasterize_counts"] == want and sum(got.values()) == want,
+              f"training path launches {got}, expected {want} rasterizer launches only")
+        launches += got["rasterize_counts"]
+        losses = [float(m["train_loss"]) for m in metrics]
+        check(np.all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+        # iteration 10 validates, improves on the monitor and saves best/
+        # (a save on a new best takes the place of the periodic one)
+        saved = os.path.join(tr.run.save_dir, "best")
+        with open(os.path.join(saved, "trainer_meta.json")) as f:
+            check(json.load(f)["iteration"] == 10, "best/ is not iteration 10")
+        check(latest_checkpoint(tr.run.save_dir).endswith("iteration_12"), "no final checkpoint")
+        print(f"train NFS recipe fp32: 13 iterations through Trainer, losses {losses[0]:.6f} .. "
+              f"{losses[-1]:.6f}, validation valid_loss "
+              f"{tr.valid_metrics.result()['valid_loss']:.6f}, "
+              f"rasterizer launches {got['rasterize_counts']} (2 per iteration and per validation "
+              f"batch), checkpoints {sorted(os.listdir(tr.run.save_dir))}")
+        res = Trainer(RunConfig(_recipe(tmp, 13, 10, valid_step=10), runid="b"),
+                      train_loader=MemoryLoader(data, start=11),
+                      valid_loader=MemoryLoader(valid, pad_last=True), seed=1, device=dev)
+        resumed = _recorded(res)
+        start = res.resume(saved)
+        check(start == 11, f"resumed at {start}")
+        res.train(start_iteration=start)
+        again = [float(m["train_loss"]) for m in resumed]
+        rel = float(np.max(np.abs(np.asarray(again) / np.asarray(losses[11:]) - 1)))
+        print(f"train resume: iterations 11-12 after resuming from best/ (iteration 10) {again}, "
+              f"uninterrupted {losses[11:]}, max rel |d| {rel:.2e} (bound {RESUME_RTOL})")
+        check(len(again) == 2 and rel <= RESUME_RTOL, f"resume differs: {again} vs {losses[11:]}")
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+        del tr, res
+
+        # fp32 and bf16, remat off (the recipe) and on: on one fixed batch,
+        # 2 warm-up and 5 timed iterations, then 1 + 2 under the profiler
+        warm, timed, prof = 2, 5, 2
+        for dtype in ("float32", "bfloat16"):
+            for remat in (False, True):
+                name = f"{dtype} remat={'on' if remat else 'off'}"
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                tr = Trainer(RunConfig(_recipe(tmp, warm + timed, 10**6, dtype=dtype, remat=remat),
+                                       runid=name.replace(" ", "_")),
+                             train_loader=MemoryLoader(data[:1]),
+                             valid_loader=MemoryLoader(valid, pad_last=True), seed=0, device=dev)
+                events = []
+                metrics = _recorded(tr, events)
+                for mod in mods.values():
+                    mod.launches = 0
+                tr.train()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev)
+                got = mods["rasterize"].launches
+                check(got == 2 * (warm + timed), f"{name}: {got} rasterizer launches")
+                launches += got
+                steps = [events[i - 1].elapsed_time(events[i]) for i in range(warm, len(events))]
+                losses = [float(m["train_loss"]) for m in metrics]
+                check(np.all(np.isfinite(losses)) and losses[-1] < losses[0],
+                      f"{name}: the loss does not fall on a fixed batch: {losses}")
+                check(all(p.dtype == torch.float32 for p in tr.state.model.parameters()),
+                      f"{name}: parameters are not float32")
+                for mod in mods.values():
+                    mod.launches = 0
+                p = profile_training(tr, warm + timed, prof)
+                launches += mods["rasterize"].launches
+                check(mods["rasterize"].launches == 2 * (tr.state.step - warm - timed),
+                      f"{name}: {mods['rasterize'].launches} rasterizer launches in "
+                      f"{tr.state.step - warm - timed} profiled iterations")
+                band = p["band"]
+                check(band == 2, f"{name}: the profiler counted {band} rasterizer kernels an "
+                                 "iteration, expected 2")
+                print(f"train {name}: {float(np.median(steps)):.3f} ms/iteration (median of "
+                      f"{len(steps)}, min {min(steps):.3f}, max {max(steps):.3f}); profiled: "
+                      f"{p['span_ms']:.3f} ms/iteration, device busy {p['busy_ms']:.3f} "
+                      f"ms/iteration, idle share {p['idle']:.1%}, {p['launches']:.0f} kernel "
+                      f"launches/iteration ({band:.0f} rasterizer); peak memory "
+                      f"{peak / 2**30:.2f} GiB; loss {losses[0]:.6f} -> {losses[-1]:.6f} on a "
+                      f"fixed batch; on {card}; top kernels: {p['top']}")
+                del tr
+    return {"rasterize_counts": launches}
+
+
 def phase_h5(dev) -> str:
     """Goldens through h5 when h5py imports; returns which route ran."""
     try:
@@ -975,7 +1377,7 @@ def phase_h5(dev) -> str:
     return "h5 (infer_file + cli.infer, float32 and int8_pall)"
 
 
-PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing")
+PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing", "train")
 
 
 def main(argv=None) -> int:
@@ -1020,6 +1422,8 @@ def main(argv=None) -> int:
     if "timing" in phases:  # before the rollouts: the profiler loses records late in a long run
         t = time_rasterizer(inputs)
         t8 = time_int8(dev)
+    if "train" in phases:  # before the rollouts: its profile counts the rasterizer's kernels
+        train_launches = phase_train(dev, card)
     if "rollouts" in phases:
         launches = phase_rollouts(dev, card)
     if "h5" in phases:
@@ -1034,7 +1438,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "bmcnet_esr_torch/csrc/rasterize.cu",
         "replaces": "bmcnet_esr_tpu/ops/pallas/rasterize.py:44",
-        "launches": launches["rasterize_counts"],
+        "launches": launches["rasterize_counts"] + train_launches["rasterize_counts"],
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -1059,6 +1463,8 @@ def main(argv=None) -> int:
             "bound_by": o["bound_by"],
             "library_ms": o["library_ms"],
         })
+    print(f"rasterizer launches: {launches['rasterize_counts']} on the inference path, "
+          f"{train_launches['rasterize_counts']} on the training path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -360,3 +360,77 @@ def test_int8_batched_model_equals_solo_on_cuda(cuda, dtype):
     print(f"{dtype} batched vs solo on {torch.cuda.get_device_name(0)}: "
           f"max |d| / max |x| = {worst:.3e}, rel-RMSE {rel:.3e}")
     assert rel < 1e-2 and worst < 0.2
+
+
+# -- training ------------------------------------------------------------------
+
+
+def _train_batch(seed, b=2, l=9, hw=(45, 80), gt=(180, 320), n=2048):
+    """One compact training batch of the NFS recipe's shapes: [B, L] windows."""
+    out = {}
+    for prefix, size, count in (("inp", hw, n), ("gt", gt, 16 * n)):
+        xy, p = compact_events(_events(seed, b * l, count, size).reshape(b, l, 4, count))
+        out[f"{prefix}_xy"], out[f"{prefix}_p"] = torch.from_numpy(xy), torch.from_numpy(p)
+        seed += 1
+    return out
+
+
+def test_rasterizer_at_training_shapes(cuda):
+    """One training batch, B x L = 2 x 9 windows in one call per prefix (the
+    train step's shapes), bit-exact against the plain version in compact and
+    raw form, into outputs full of NaN."""
+    from bmcnet_esr_torch.ops.batch import batch_events_to_counts, counts_from_batch
+
+    batch = _train_batch(11)
+    for prefix, hw, n in (("inp", (45, 80), 2048), ("gt", (180, 320), 32768)):
+        xy, p = batch[f"{prefix}_xy"].to(cuda), batch[f"{prefix}_p"].to(cuda)
+        before = rasterize.launches
+        got = counts_from_batch({f"{prefix}_xy": xy, f"{prefix}_p": p}, prefix, hw)
+        assert rasterize.launches == before + 1 and tuple(got.shape) == (2, 9, *hw, 2)
+        want = rasterize.counts_plain(xy.view(18, 2, n)[:, 0], xy.view(18, 2, n)[:, 1],
+                                      p.view(18, n), hw)
+        nan = torch.full((18, *hw, 2), float("nan"), device=cuda)
+        into = rasterize.counts_from_compact(xy.view(18, 2, n), p.view(18, n), hw, out=nan)
+        raw = torch.zeros((2, 9, 4, n), device=cuda)
+        raw[:, :, :2], raw[:, :, 3] = xy.float(), p.float()
+        got_raw = batch_events_to_counts(raw, hw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(18, *hw, 2), want) and torch.equal(into, want)
+        assert torch.equal(got_raw.view(18, *hw, 2), want)
+
+
+@pytest.mark.parametrize("variant", ["plain", "full"])
+def test_train_step_on_cuda_matches_cpu(cuda, variant):
+    """One train step (BPTT over 8 window pairs, backward, Adam with amsgrad
+    and weight decay) of a narrow model at the NFS shapes, on the card and on
+    the CPU from the same parameters and batch.  float32 with TF32 off; the
+    two differ by summation order: loss and gradient norm to rtol 1e-5, the
+    parameters after the update to 2e-6 absolute (2 % of an update of the
+    learning rate, 1e-4: a first Adam update is g / (|g| + eps) times it, so
+    an element whose gradient is near eps moves by its rounding)."""
+    from bmcnet_esr_torch.models import BMCNetPlain
+    from bmcnet_esr_torch.training import build_optimizer, init_train_state, make_train_step
+
+    cls = BMCNetPlain if variant == "plain" else BMCNet
+    base = cls(scale=4, n_c=16, n_b=2, generator=torch.Generator().manual_seed(1))
+    batch = _train_batch(21)
+    step = make_train_step((45, 80), (180, 320), use_remat=False)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        m = cls(scale=4, n_c=16, n_b=2)
+        m.load_state_dict(base.state_dict())
+        m = m.to(dev, memory_format=torch.channels_last)
+        opt, sched = build_optimizer(m.parameters(), {"name": "Adam", "args": {
+            "lr": 1e-4, "weight_decay": 1e-5, "amsgrad": True}}, {}, {})
+        state = init_train_state(m, opt, sched)
+        before = rasterize.launches
+        state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            assert rasterize.launches == before + 2  # one per prefix
+        out[dev.type] = ({k: float(v) for k, v in metrics.items()},
+                         {n: p.detach().cpu() for n, p in m.named_parameters()})
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    assert mg["train_loss"] == pytest.approx(mc["train_loss"], rel=1e-5)
+    assert mg["grad_norm"] == pytest.approx(mc["grad_norm"], rel=1e-5)
+    for name in pc:
+        torch.testing.assert_close(pg[name], pc[name], rtol=0, atol=2e-6, msg=name)

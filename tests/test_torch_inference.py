@@ -118,7 +118,7 @@ def test_dataset_windows_match_jax(g, files):
 
 
 def test_dataset_unported_options_raise(files):
-    cfg = DatasetConfig.from_dict({"scale": 4, "ori_scale": "down4", "add_noise": {"enabled": True}})
+    cfg = DatasetConfig.from_dict({"scale": 4, "ori_scale": "down4", "mode": "frame"})
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         EventH5Dataset(files[0], cfg)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
@@ -231,7 +231,6 @@ def test_cli_int8_dtypes_run(dtype, files, g, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh_devices", "2"], "item 8"),
-    (["--ema"], "item 7"),
 ])
 def test_cli_unported_options_exit_naming_roadmap(argv, item, files):
     with pytest.raises(SystemExit, match=item):

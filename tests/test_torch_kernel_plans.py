@@ -264,9 +264,11 @@ def test_quantize_zeros_match_jax(dtype, relu):
 
 # -- the rasterizer: plan, bands, head / body / tail ----------------------------
 
-# (G, N, H, W): the main path's chunks, one window, images of one pixel, one
-# row and one column, odd sizes, no events, more windows than multiprocessors
-RASTER_SHAPES = [(33, 2048, 45, 80), (32, 32768, 180, 320), (1, 32768, 180, 320), (1, 15, 45, 80),
+# (G, N, H, W): the main path's chunks, one training batch (B x L = 2 x 9
+# windows), one window, images of one pixel, one row and one column, odd
+# sizes, no events, more windows than multiprocessors
+RASTER_SHAPES = [(33, 2048, 45, 80), (32, 32768, 180, 320), (18, 2048, 45, 80),
+                 (18, 32768, 180, 320), (1, 32768, 180, 320), (1, 15, 45, 80),
                  (2, 512, 1, 1), (5, 2048, 1, 320), (3, 2047, 9, 13), (4, 100, 300, 1),
                  (2, 0, 45, 80), (500, 2048, 45, 80), (7, 4096, 720, 1280), (2, 64, 100, 29056)]
 
@@ -305,6 +307,16 @@ def test_raster_plan_main_path_fills_the_card_in_one_wave():
     # fewer multiprocessors, or more windows than multiprocessors: whole images
     assert rasterize.raster_plan(32, 32768, 180, 320, True, sms=40)["bands"] == 2  # 90 rows fit
     assert rasterize.raster_plan(200, 2048, 45, 80, True)["bands"] == 1
+
+
+def test_raster_plan_training_batch_fills_the_card_in_one_wave():
+    """The training path's calls (18 windows each): 7 bands a window, 126
+    blocks, one wave on 132 multiprocessors."""
+    lr = rasterize.raster_plan(18, 2048, 45, 80, True)
+    assert (lr["rows"], lr["bands"], lr["grid"]) == (7, 7, 126)
+    gt = rasterize.raster_plan(18, 32768, 180, 320, True)
+    assert (gt["rows"], gt["bands"], gt["grid"], gt["threads"]) == (26, 7, 126, 1024)
+    assert gt["smem_bytes"] == 26 * 320 * 2 * 4
 
 
 @pytest.mark.parametrize("g,n,h,w,compact,route", [
@@ -424,6 +436,7 @@ def _raster_events(seed, g, n, hw, hot=False):
     (2, 512, (6, 8), 0, 0, 0, True),      # every event of a window on one pixel
     (1, 0, (4, 6), 0, 0, 0, False),       # no events: the zeros still have to be written
     (2, 5, (1, 1), 0, 0, 0, False),       # fewer events than one vector, an image of one pixel
+    (18, 64, (9, 16), 0, 0, 0, False),    # a training batch's 18 windows: 5 bands a window
 ])
 def test_raster_band_walk_equals_plain_and_jax(g, n, hw, off_x, off_p, off_out, hot):
     """The band kernel's walk, compact and raw, equals ``counts_plain``, the
