@@ -1,23 +1,26 @@
-"""File inference (the chunked recurrent rollout) and live serving (streams,
-the slot pool and the TCP daemon)."""
+"""File inference (the chunked recurrent rollout), live serving (streams,
+the slot pool and the TCP daemon) and serving bundles (``torch.export``).
 
-from bmcnet_esr_torch.inference.engine import InferenceEngine, load_model_for_inference
-from bmcnet_esr_torch.inference.server import EventSRClient, EventSRServer
-from bmcnet_esr_torch.inference.streaming import (
-    WIRE_MODES,
-    PredFetch,
-    StreamingSR,
-    StreamPool,
-    assemble_fetch,
-    pad_window,
-    pad_window_compact,
-    serving_state,
-    valid_polarity,
-    wire_decode,
-)
+Names load on first use, so that a consumer of a serving bundle
+(``ExportedStream``) imports neither the models nor the engine."""
 
-__all__ = [
-    "InferenceEngine", "load_model_for_inference", "EventSRClient", "EventSRServer",
-    "WIRE_MODES", "PredFetch", "StreamingSR", "StreamPool", "assemble_fetch", "pad_window",
-    "pad_window_compact", "serving_state", "valid_polarity", "wire_decode",
-]
+import importlib
+
+_HOMES = {
+    "engine": ("InferenceEngine", "load_model_for_inference"),
+    "server": ("EventSRClient", "EventSRServer"),
+    "streaming": ("WIRE_MODES", "PredFetch", "StreamingSR", "StreamPool", "assemble_fetch",
+                  "pad_window", "pad_window_compact", "serving_state", "valid_polarity",
+                  "wire_decode"),
+    "export": ("ExportedStream", "export_serving_bundle"),
+}
+_HOME_OF = {name: mod for mod, names in _HOMES.items() for name in names}
+
+__all__ = sorted(_HOME_OF)
+
+
+def __getattr__(name: str):
+    mod = _HOME_OF.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)

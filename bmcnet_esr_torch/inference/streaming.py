@@ -52,6 +52,7 @@ from bmcnet_esr_torch.ops.batch import (
     batch_counts_from_compact,
     batch_events_to_counts,
     compact_events,
+    pad_window,
 )
 from bmcnet_esr_torch.utils import resolve_device
 
@@ -170,28 +171,6 @@ class PredFetch:
         if self._event is not None:
             self._event.synchronize()
         return _tree_map(_host_numpy, self._host)
-
-
-def pad_window(events: np.ndarray, window_size: int) -> np.ndarray:
-    """Zero-pad an event window to ``window_size`` and normalize its
-    timestamps to [0, 1] (``(ts - t0) / (t1 - t0 + 1e-6)``).  Accepts ``[4,
-    n]`` or batched ``[B, 4, n]`` and keeps the layout.  The padding for the
-    full-event surfaces (:class:`StreamingSR`, int8 calibration); the pool's
-    compact push paths use :func:`pad_window_compact`."""
-    events = np.asarray(events, np.float32)
-    batched = events.ndim == 3
-    if not batched:
-        events = events[None]
-    b, _, n = events.shape
-    if n > window_size:
-        raise ValueError(f"window of {n} events exceeds window_size {window_size}")
-    out = np.zeros((b, 4, window_size), np.float32)
-    out[:, :, :n] = events
-    if n:
-        ts = out[:, 2, :n]
-        t0, t1 = ts[:, :1], ts[:, n - 1 : n]
-        out[:, 2, :n] = (ts - t0) / (t1 - t0 + 1e-6)
-    return out if batched else out[0]
 
 
 def pad_window_compact(events: np.ndarray, window_size: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -10,6 +10,10 @@ build happens at the first launch in a process, never at import, so the
 package imports on machines without a CUDA toolkit.  The library is written
 under a temporary name and renamed into place, so concurrent first launches
 from several processes are safe.
+
+:func:`define_op` registers each kernel as a ``torch.library`` operator in
+the ``bmcnet`` namespace; the checks below serve the public wrappers and the
+operators' CUDA registrations alike.
 """
 
 from __future__ import annotations
@@ -42,6 +46,10 @@ SMEM_LIMIT = 232_448
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+# the kernels' operators, ``torch.ops.bmcnet.*``, registered when each
+# kernel module is imported
+OPS = torch.library.Library("bmcnet", "FRAGMENT")
 
 
 def find_nvcc() -> str:
@@ -108,12 +116,47 @@ def device_kind(*ts: torch.Tensor) -> str:
     return kind
 
 
+def refuse_strided(x: torch.Tensor) -> None:
+    """The wrappers' check of an activation: a CUDA tensor must be
+    contiguous (its NHWC memory is what the kernel reads; a caller's NCHW
+    memory seen as NHWC is refused, never reinterpreted)."""
+    if x.is_cuda and not x.is_contiguous():
+        raise ValueError("x must be contiguous NHWC")
+
+
+def dense(x: torch.Tensor) -> torch.Tensor:
+    """What the CUDA registrations give their kernels: ``x`` when contiguous,
+    else a contiguous copy.  A program traced by ``torch.export`` decides at
+    trace time, from fake tensors, where it copies into NHWC memory, and on
+    CUDA a fake tensor's memory format can differ from the real one's, so
+    the operator copies what such a program hands it rather than refuse it
+    (the wrappers refuse it from eager callers: :func:`refuse_strided`)."""
+    return x.contiguous()
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Sequence[int]) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``."""
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise TypeError(f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def define_op(schema: str, cpu: Callable, cuda: Callable, fake: Callable):
+    """Define the operator ``bmcnet::<schema>`` with three registrations:
+    ``cpu`` (the plain version) for the CPU key, ``cuda`` (the launch) for
+    the CUDA key, and ``fake``, which gives the output's shape, dtype and
+    strides from the inputs' alone, for tracing (``torch.export``, fake
+    tensors).  ``torch.library.Library`` rather than ``custom_op``: its
+    dispatch costs the host less per call, and the int8 paths make a
+    hundred and more calls a forward (``PERF.md``).  Returns the overload."""
+    name = schema.split("(", 1)[0]
+    OPS.define(schema)
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"bmcnet::{name}", fake, lib=OPS)
+    op, _, overload = name.partition(".")
+    return getattr(getattr(torch.ops.bmcnet, op), overload or "default")
 
 
 def launch(fn, args: Sequence, device: torch.device, error_string: Callable) -> None:

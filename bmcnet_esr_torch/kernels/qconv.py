@@ -22,9 +22,12 @@ plan (tile, grid, ring stages, shared memory) the wrapper hands to the C
 entry point.  Unlike the TPU kernel there is no VMEM gate (``fits_vmem``):
 the kernel tiles the image and the channels and takes every shape.
 
-Routing is by the device of the input: CPU tensors go through
-:func:`qconv3x3_plain`, CUDA tensors through the kernel (or an exception).
-``launches`` counts kernel launches.
+The kernel is the operator ``bmcnet::quant_conv3x3`` (per-lane float32
+scales, ``out_dtype`` a ``torch.dtype``, ``emit_scale`` and ``packed``
+optional): the dispatcher routes by the device of the inputs, CPU tensors
+through :func:`qconv3x3_plain`, CUDA tensors through the kernel (or an
+exception), fake tensors to the output's shape.  ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -39,9 +42,12 @@ import torch.nn.functional as F
 from bmcnet_esr_torch.kernels._build import (
     H100_SMS,
     check_tensor,
+    define_op,
+    dense,
     device_kind,
     launch,
     load_library,
+    refuse_strided,
 )
 from bmcnet_esr_torch.kernels.qmm import IN_KINDS, K_STEP, ROW_PAD, SMEM_LIMIT, pad_to
 from bmcnet_esr_torch.kernels.quantize import (
@@ -179,6 +185,70 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _qconv_cuda(x, wq, sw, sx, bias, out_dtype, emit_scale, emit_relu, packed):
+    """The launch: ``x`` NHWC (made contiguous, :func:`dense`), ``sx`` (and ``emit_scale``)
+    float32 ``[B]``."""
+    global launches
+    tensors = (x, wq, sw, sx, bias, emit_scale, packed)
+    if device_kind(*(t for t in tensors if t is not None)) != "cuda":
+        raise ValueError("the kernel takes CUDA tensors only")
+    x = dense(x)
+    lanes, h, w, cin = x.shape
+    cout = wq.shape[3]
+    if packed is None:
+        packed = pack_weights3x3(wq)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_plan(lanes, h, w, cin, cout, sms=sms)
+    slab = 9 * BLOCK_N * plan["cin_pad"]
+    check_tensor(x, "x", x.dtype, (lanes, h, w, cin))
+    check_tensor(packed, "packed", torch.int8, (plan["grid"][1], slab))
+    check_tensor(sw, "sw", torch.float32, (cout,))
+    check_tensor(sx, "sx", torch.float32, (lanes,))
+    check_tensor(bias, "bias", torch.float32, (cout,))
+    if emit_scale is not None:
+        check_tensor(emit_scale, "emit_scale", torch.float32, (lanes,))
+    if packed.data_ptr() % 16:
+        raise ValueError("packed weights must be 16-byte aligned")
+    if lanes * h * w >= 2**31 or h * w * max(cin, cout) >= 2**31:
+        raise ValueError(f"x {tuple(x.shape)} does not fit the kernel's int indexing")
+    if plan["smem_bytes"] > SMEM_LIMIT:
+        raise ValueError(f"{plan['smem_bytes']} bytes of shared memory exceed {SMEM_LIMIT}")
+    odt = _out_dtype(out_dtype, emit_scale)
+    out = torch.empty((lanes, h, w, cout), dtype=odt, device=x.device)
+    # 16-byte loads need whole vectors per pixel and an aligned base
+    vec = cin % (16 if x.dtype == torch.int8 else 8) == 0 and x.data_ptr() % 16 == 0
+    lib = _lib()
+    args = (IN_KINDS[x.dtype], OUT_KINDS[odt], x.data_ptr(), packed.data_ptr(), sw.data_ptr(),
+            sx.data_ptr(), bias.data_ptr(), None if emit_scale is None else emit_scale.data_ptr(),
+            out.data_ptr(), lanes, h, w, cin, plan["cin_pad"], cout, int(emit_relu), int(vec),
+            *plan["tile"], plan["block_n"], plan["threads"], *plan["grid"], plan["stages"],
+            plan["smem_bytes"])
+    launch(lib.qconv3x3, args, x.device, lib.qconv_error_string)
+    launches += 1
+    return out
+
+
+def _out_dtype(out_dtype: torch.dtype, emit_scale: Optional[torch.Tensor]) -> torch.dtype:
+    return out_dtype if emit_scale is None else torch.int8
+
+
+def _qconv_plain_op(x, wq, sw, sx, bias, out_dtype, emit_scale, emit_relu, packed):
+    y = qconv3x3_plain(x, wq, sw, sx, bias, out_dtype, emit_scale, emit_relu)
+    return y.contiguous()  # the plain convolution leaves NCHW memory behind the NHWC view
+
+
+def _qconv_fake(x, wq, sw, sx, bias, out_dtype, emit_scale, emit_relu, packed):
+    return torch.empty((*x.shape[:3], wq.shape[3]), dtype=_out_dtype(out_dtype, emit_scale),
+                       device=x.device)
+
+
+# the operator: the plain version for the CPU key, the kernel for the CUDA key
+qconv_op = define_op(
+    "quant_conv3x3(Tensor x, Tensor wq, Tensor sw, Tensor sx, Tensor bias, ScalarType out_dtype, "
+    "Tensor? emit_scale, bool emit_relu, Tensor? packed) -> Tensor",
+    _qconv_plain_op, _qconv_cuda, _qconv_fake)
+
+
 def quant_conv3x3(
     x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, sx, bias: torch.Tensor,
     *, out_dtype: torch.dtype = torch.bfloat16, emit_scale=None, emit_relu: bool = False,
@@ -189,44 +259,15 @@ def quant_conv3x3(
     ``sw [Cout]`` and ``bias [Cout]``; per-lane scales are a scalar, ``[1]``
     or ``[B]``.  With ``emit_scale`` the result is int8 at that scale,
     after a ReLU when ``emit_relu``."""
-    global launches
     if x.dim() != 4 or x.dtype not in IN_KINDS:
         raise TypeError(f"x: expected NHWC int8, bf16 or float32, got {x.dim()}-D {x.dtype}")
     if wq.dim() != 4 or tuple(wq.shape[:3]) != (3, 3, x.shape[3]):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, wq {tuple(wq.shape)}")
     if emit_scale is None and out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or float32, got {out_dtype}")
-    lanes, h, w, cin = x.shape
-    cout = wq.shape[3]
-    if device_kind(x, wq, sw, bias) == "cpu":
-        return qconv3x3_plain(x, wq, sw, sx, bias, out_dtype, emit_scale, emit_relu)
-    if packed is None:
-        packed = pack_weights3x3(wq)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = conv_plan(lanes, h, w, cin, cout, sms=sms)
-    slab = 9 * BLOCK_N * plan["cin_pad"]
-    check_tensor(x, "x", x.dtype, (lanes, h, w, cin))
-    check_tensor(packed, "packed", torch.int8, (plan["grid"][1], slab))
-    check_tensor(sw, "sw", torch.float32, (cout,))
-    check_tensor(bias, "bias", torch.float32, (cout,))
-    if packed.device != x.device or packed.data_ptr() % 16:
-        raise ValueError("packed weights must lie on x's device, 16-byte aligned")
-    if lanes * h * w >= 2**31 or h * w * max(cin, cout) >= 2**31:
-        raise ValueError(f"x {tuple(x.shape)} does not fit the kernel's int indexing")
-    if plan["smem_bytes"] > SMEM_LIMIT:
-        raise ValueError(f"{plan['smem_bytes']} bytes of shared memory exceed {SMEM_LIMIT}")
-    s = lane_scales(sx, lanes, x.device)
+    device_kind(*(t for t in (x, wq, sw, bias, packed) if t is not None))
+    refuse_strided(x)
+    lanes = x.shape[0]
     se = None if emit_scale is None else lane_scales(emit_scale, lanes, x.device)
-    odt = torch.int8 if se is not None else out_dtype
-    out = torch.empty((lanes, h, w, cout), dtype=odt, device=x.device)
-    # 16-byte loads need whole vectors per pixel and an aligned base
-    vec = cin % (16 if x.dtype == torch.int8 else 8) == 0 and x.data_ptr() % 16 == 0
-    lib = _lib()
-    args = (IN_KINDS[x.dtype], OUT_KINDS[odt], x.data_ptr(), packed.data_ptr(), sw.data_ptr(),
-            s.data_ptr(), bias.data_ptr(), None if se is None else se.data_ptr(),
-            out.data_ptr(), lanes, h, w, cin, plan["cin_pad"], cout, int(emit_relu), int(vec),
-            *plan["tile"], plan["block_n"], plan["threads"], *plan["grid"], plan["stages"],
-            plan["smem_bytes"])
-    launch(lib.qconv3x3, args, x.device, lib.qconv_error_string)
-    launches += 1
-    return out
+    return qconv_op(x, wq, sw, lane_scales(sx, lanes, x.device), bias, out_dtype, se,
+                    bool(emit_relu), packed)

@@ -15,9 +15,11 @@ slab the kernel copies into shared memory in one piece), which callers that
 reuse them pass in ``packed``.  :func:`matmul_plan` is the launch plan the
 wrapper hands to the C entry point.
 
-Routing is by the device of the input: CPU tensors go through
-:func:`qmm_plain`, CUDA tensors through the kernel (or an exception).
-``launches`` counts kernel launches.
+The kernel is the operator ``bmcnet::quant_matmul`` (per-lane float32
+scales, ``out_dtype`` a ``torch.dtype``, ``packed`` optional): the
+dispatcher routes by the device of the inputs, CPU tensors through
+:func:`qmm_plain`, CUDA tensors through the kernel (or an exception), fake
+tensors to the output's shape.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -32,9 +34,12 @@ import torch.nn.functional as F
 from bmcnet_esr_torch.kernels._build import (
     SMEM_LIMIT,
     check_tensor,
+    define_op,
+    dense,
     device_kind,
     launch,
     load_library,
+    refuse_strided,
 )
 from bmcnet_esr_torch.kernels.quantize import (
     epilogue_plain,
@@ -141,28 +146,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def quant_matmul(
-    x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, sx, bias: torch.Tensor,
-    *, out_dtype: torch.dtype = torch.bfloat16, packed: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """``y [B, M, N]`` from ``x [B, M, K]`` (a 2-D ``x`` is one lane) and
-    int8 ``wq [K, N]`` with scales ``sw [N]``, per-lane activation scales
-    ``sx`` (scalar, ``[1]`` or ``[B]``) and ``bias [N]``."""
+def _qmm_cuda(x, wq, sw, sx, bias, out_dtype, packed):
+    """The launch: ``x [B, M, K]`` (made contiguous, :func:`dense`), ``sx`` float32 ``[B]``."""
     global launches
-    squeeze = x.dim() == 2
-    if squeeze:
-        x = x[None]
-    if x.dim() != 3 or x.dtype not in IN_KINDS:
-        raise TypeError(f"x: expected [B, M, K] int8, bf16 or float32, got {x.dim()}-D {x.dtype}")
-    if out_dtype not in OUT_KINDS:
-        raise TypeError(f"out_dtype must be bf16 or float32, got {out_dtype}")
+    if device_kind(*(t for t in (x, wq, sw, sx, bias, packed) if t is not None)) != "cuda":
+        raise ValueError("the kernel takes CUDA tensors only")
+    x = dense(x)
     lanes, m, k = x.shape
-    if wq.dim() != 2 or wq.shape[0] != k:
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, wq {tuple(wq.shape)}")
     n = wq.shape[1]
-    if device_kind(x, wq, sw, bias) == "cpu":
-        y = qmm_plain(x, wq, sw, sx, bias, out_dtype)
-        return y[0] if squeeze else y
     if packed is None:
         packed = pack_weights(wq)
     plan = matmul_plan(lanes, m, k, n)
@@ -171,19 +162,56 @@ def quant_matmul(
     check_tensor(x, "x", x.dtype, (lanes, m, k))
     check_tensor(packed, "packed", torch.int8, (plan["grid"][1], slab))
     check_tensor(sw, "sw", torch.float32, (n,))
+    check_tensor(sx, "sx", torch.float32, (lanes,))
     check_tensor(bias, "bias", torch.float32, (n,))
-    if packed.device != x.device or packed.data_ptr() % 16:
-        raise ValueError("packed weights must lie on x's device, 16-byte aligned")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed weights must be 16-byte aligned")
     if lanes * m >= 2**31 or m * k >= 2**31:
         raise ValueError(f"x {tuple(x.shape)} does not fit the kernel's int indexing")
-    s = lane_scales(sx, lanes, x.device)
     out = torch.empty((lanes, m, n), dtype=out_dtype, device=x.device)
     # 16-byte loads need whole vectors per row and an aligned base
     vec = k % (16 if x.dtype == torch.int8 else 8) == 0 and x.data_ptr() % 16 == 0
     lib = _lib()
     args = (IN_KINDS[x.dtype], OUT_KINDS[out_dtype], x.data_ptr(), packed.data_ptr(),
-            sw.data_ptr(), s.data_ptr(), bias.data_ptr(), out.data_ptr(), lanes, m, k, k_pad, n,
+            sw.data_ptr(), sx.data_ptr(), bias.data_ptr(), out.data_ptr(), lanes, m, k, k_pad, n,
             int(vec), *plan["block"], plan["threads"], *plan["grid"], plan["smem_bytes"])
     launch(lib.qmm, args, x.device, lib.qmm_error_string)
     launches += 1
-    return out[0] if squeeze else out
+    return out
+
+
+def _qmm_plain_op(x, wq, sw, sx, bias, out_dtype, packed):
+    return qmm_plain(x, wq, sw, sx, bias, out_dtype)
+
+
+def _qmm_fake(x, wq, sw, sx, bias, out_dtype, packed):
+    return torch.empty((*x.shape[:2], wq.shape[1]), dtype=out_dtype, device=x.device)
+
+
+# the operator: the plain version for the CPU key, the kernel for the CUDA key
+qmm_op = define_op(
+    "quant_matmul(Tensor x, Tensor wq, Tensor sw, Tensor sx, Tensor bias, ScalarType out_dtype, "
+    "Tensor? packed) -> Tensor",
+    _qmm_plain_op, _qmm_cuda, _qmm_fake)
+
+
+def quant_matmul(
+    x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, sx, bias: torch.Tensor,
+    *, out_dtype: torch.dtype = torch.bfloat16, packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``y [B, M, N]`` from ``x [B, M, K]`` (a 2-D ``x`` is one lane) and
+    int8 ``wq [K, N]`` with scales ``sw [N]``, per-lane activation scales
+    ``sx`` (scalar, ``[1]`` or ``[B]``) and ``bias [N]``."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    if x.dim() != 3 or x.dtype not in IN_KINDS:
+        raise TypeError(f"x: expected [B, M, K] int8, bf16 or float32, got {x.dim()}-D {x.dtype}")
+    if out_dtype not in OUT_KINDS:
+        raise TypeError(f"out_dtype must be bf16 or float32, got {out_dtype}")
+    if wq.dim() != 2 or wq.shape[0] != x.shape[2]:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, wq {tuple(wq.shape)}")
+    device_kind(*(t for t in (x, wq, sw, bias, packed) if t is not None))
+    refuse_strided(x)
+    y = qmm_op(x, wq, sw, lane_scales(sx, x.shape[0], x.device), bias, out_dtype, packed)
+    return y[0] if squeeze else y

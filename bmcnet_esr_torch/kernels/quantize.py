@@ -7,9 +7,11 @@ bf16 / float32 -> int8 at a static per-lane scale ``sx`` (scalar, ``[1]`` or
 ``[B]``), ``clip(round_half_even([relu](x) / sx[b]), -127, 127)``.  The
 kernel is ``csrc/quantize.cu``; :func:`quantize_plan` sizes its grid.
 
-Routing is by the device of the input: a CPU tensor goes through
-:func:`quantize_plain`, a CUDA tensor through the kernel (or an exception;
-there is no fallback).  ``launches`` counts kernel launches.
+The kernel is the operator ``bmcnet::quantize_act`` (per-lane float32
+scales): the dispatcher routes by the device of the input, a CPU tensor
+through :func:`quantize_plain`, a CUDA tensor through the kernel (or an
+exception; there is no fallback), a fake tensor to the output's shape.
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -19,7 +21,16 @@ import functools
 
 import torch
 
-from bmcnet_esr_torch.kernels._build import H100_SMS, device_kind, launch, load_library
+from bmcnet_esr_torch.kernels._build import (
+    H100_SMS,
+    check_tensor,
+    define_op,
+    dense,
+    device_kind,
+    launch,
+    load_library,
+    refuse_strided,
+)
 
 SOURCE = "quantize.cu"
 
@@ -114,31 +125,50 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def quantize_act(x: torch.Tensor, sx, relu: bool = False) -> torch.Tensor:
-    """``x [B, H, W, C]`` (NHWC-contiguous bf16 or float32) -> int8, per-lane
-    scales ``sx`` (scalar, ``[1]`` or ``[B]``), optional fused ReLU."""
+def _quantize_cuda(x: torch.Tensor, sx: torch.Tensor, relu: bool) -> torch.Tensor:
+    """The launch: ``x`` NHWC (made contiguous, :func:`dense`), ``sx`` float32 ``[B]``."""
     global launches
-    if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x: expected 4-D bf16 or float32, got {x.dim()}-D {x.dtype}")
-    if device_kind(x) == "cpu":
-        return quantize_plain(x, sx, relu)
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous NHWC")
+    if device_kind(x, sx) != "cuda":
+        raise ValueError("the kernel takes CUDA tensors only")
+    x = dense(x)
     lanes = x.shape[0]
     per_lane = x[0].numel() if lanes else 0
     if per_lane >= 2**31:
         raise ValueError(f"{per_lane} elements per lane do not fit the kernel's int indexing")
-    s = lane_scales(sx, lanes, x.device)
+    check_tensor(sx, "sx", torch.float32, (lanes,))
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
     lib = _lib()
     fn = lib.quantize_act_bf16 if x.dtype == torch.bfloat16 else lib.quantize_act_f32
     blocks = quantize_plan(lanes, per_lane, sms=_sms(x.device))["grid"][0]
-    launch(fn, (x.data_ptr(), s.data_ptr(), out.data_ptr(), lanes, per_lane, int(relu), blocks),
+    launch(fn, (x.data_ptr(), sx.data_ptr(), out.data_ptr(), lanes, per_lane, int(relu), blocks),
            x.device, lib.quantize_error_string)
     launches += 1
     return out
+
+
+def _quantize_plain_op(x, sx, relu):
+    return quantize_plain(x, sx, relu).contiguous()  # as the kernel's output, whatever x's memory
+
+
+def _quantize_fake(x, sx, relu):
+    return torch.empty(x.shape, dtype=torch.int8, device=x.device)
+
+
+# the operator: the plain version for the CPU key, the kernel for the CUDA key
+quantize_op = define_op("quantize_act(Tensor x, Tensor sx, bool relu) -> Tensor",
+                        _quantize_plain_op, _quantize_cuda, _quantize_fake)
+
+
+def quantize_act(x: torch.Tensor, sx, relu: bool = False) -> torch.Tensor:
+    """``x [B, H, W, C]`` (NHWC-contiguous bf16 or float32) -> int8, per-lane
+    scales ``sx`` (scalar, ``[1]`` or ``[B]``), optional fused ReLU."""
+    if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: expected 4-D bf16 or float32, got {x.dim()}-D {x.dtype}")
+    device_kind(x)
+    refuse_strided(x)
+    return quantize_op(x, lane_scales(sx, x.shape[0], x.device), bool(relu))
 
 
 def launch_empty_grid(x: torch.Tensor) -> None:

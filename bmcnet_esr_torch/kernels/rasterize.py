@@ -11,9 +11,13 @@ once (the output is never zero-filled), and one thread-per-event kernel for
 the shapes no band fits.  :func:`raster_plan` chooses between them by shape
 and sizes the launch.
 
-Routing is by the device of the input: a CPU tensor goes through
-:func:`counts_plain`, a CUDA tensor through a kernel (or an exception;
-there is no fallback).  ``launches`` counts kernel launches.
+The kernels are the operators ``bmcnet::rasterize_counts_compact`` and
+``bmcnet::rasterize_counts_f32`` (each with an ``.into`` overload that
+writes a caller's buffer): the dispatcher routes by the device of the
+input, a CPU tensor through :func:`counts_plain`, a CUDA tensor through a
+kernel (or an exception; there is no fallback), and a fake tensor, while
+``torch.export`` traces, to the output's shape alone.  ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from bmcnet_esr_torch.kernels._build import (
     H100_SMS,
     SMEM_LIMIT,
+    define_op,
     device_kind,
     launch,
     load_library,
@@ -119,36 +124,98 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _plain_into(counts: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
-    return counts if out is None else out.copy_(counts)
-
-
-def _launch(fn, ptrs, src: torch.Tensor, sensor_size, compact: bool,
-            out: Optional[torch.Tensor]) -> torch.Tensor:
-    """Plan and launch on the windows ``src [G, _, N]``; the result goes into
-    ``out`` when given (every element is written, whatever it held)."""
+def _launch(fn, srcs: Tuple[torch.Tensor, ...], h: int, w: int, compact: bool,
+            out: torch.Tensor) -> None:
+    """Plan and launch on the windows ``srcs[0] [G, _, N]`` (and the rest of
+    ``srcs``) into ``out [G, h, w, 2]``: every element is written, whatever
+    it held."""
     global launches
-    h, w = int(sensor_size[0]), int(sensor_size[1])
+    if device_kind(*srcs, out) != "cuda":
+        raise ValueError("the kernel takes CUDA tensors only")
+    src = srcs[0]
     g, n = src.shape[0], src.shape[2]
-    if out is None:
-        out = torch.empty((g, h, w, 2), dtype=torch.float32, device=src.device)
-    else:
-        _check(out, "out", torch.float32, 4)
-        if tuple(out.shape) != (g, h, w, 2) or out.device != src.device:
-            raise ValueError(f"out: expected {(g, h, w, 2)} on {src.device}, got "
-                             f"{tuple(out.shape)} on {out.device}")
     if out.numel() == 0:
-        return out
+        return
     if max(n, h, w) >= 2**31:
         raise ValueError(f"N={n}, H={h}, W={w} do not fit the kernel's int indexing")
     sms = torch.cuda.get_device_properties(src.device).multi_processor_count
     plan = raster_plan(g, n, h, w, compact, sms=sms)
     if plan["grid"] >= 2**31:
         raise ValueError(f"{plan['grid']} blocks exceed the grid's first axis")
-    args = (*ptrs, out.data_ptr(), g, n, h, w, plan["rows"], plan["threads"], plan["smem_bytes"])
+    args = (*(t.data_ptr() for t in srcs), out.data_ptr(), g, n, h, w, plan["rows"],
+            plan["threads"], plan["smem_bytes"])
     launch(fn, args, out.device, _lib().rasterize_error_string)
     launches += 1
+
+
+# the operators: the plain version for the CPU key, the kernel for the CUDA
+# key; each ``.into`` overload writes a caller's buffer
+
+
+def _new(src: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return torch.empty((src.shape[0], h, w, 2), dtype=torch.float32, device=src.device)
+
+
+def _compact_plain(xy, p, h, w):
+    return counts_plain(xy[:, 0], xy[:, 1], p, (h, w))
+
+
+def _compact_plain_into(xy, p, h, w, out):
+    out.copy_(_compact_plain(xy, p, h, w))
+
+
+def _compact_cuda_into(xy, p, h, w, out):
+    _launch(_lib().rasterize_counts_compact, (xy, p), h, w, True, out)
+
+
+def _compact_cuda(xy, p, h, w):
+    out = _new(xy, h, w)
+    _compact_cuda_into(xy, p, h, w, out)
     return out
+
+
+def _events_plain(events, h, w):
+    return counts_plain(events[:, 0], events[:, 1], events[:, 3], (h, w))
+
+
+def _events_plain_into(events, h, w, out):
+    out.copy_(_events_plain(events, h, w))
+
+
+def _events_cuda_into(events, h, w, out):
+    _launch(_lib().rasterize_counts_f32, (events,), h, w, False, out)
+
+
+def _events_cuda(events, h, w):
+    out = _new(events, h, w)
+    _events_cuda_into(events, h, w, out)
+    return out
+
+
+def _no_output(*args) -> None:
+    return None
+
+
+compact_op = define_op(
+    "rasterize_counts_compact(Tensor xy, Tensor p, int h, int w) -> Tensor",
+    _compact_plain, _compact_cuda, lambda xy, p, h, w: _new(xy, h, w))
+compact_into_op = define_op(
+    "rasterize_counts_compact.into(Tensor xy, Tensor p, int h, int w, Tensor(a!) out) -> ()",
+    _compact_plain_into, _compact_cuda_into, _no_output)
+events_op = define_op(
+    "rasterize_counts_f32(Tensor events, int h, int w) -> Tensor",
+    _events_plain, _events_cuda, lambda events, h, w: _new(events, h, w))
+events_into_op = define_op(
+    "rasterize_counts_f32.into(Tensor events, int h, int w, Tensor(a!) out) -> ()",
+    _events_plain_into, _events_cuda_into, _no_output)
+
+
+def _check_out(out: torch.Tensor, src: torch.Tensor, h: int, w: int) -> None:
+    _check(out, "out", torch.float32, 4)
+    want = (src.shape[0], h, w, 2)
+    if tuple(out.shape) != want or out.device != src.device:
+        raise ValueError(f"out: expected {want} on {src.device}, got "
+                         f"{tuple(out.shape)} on {out.device}")
 
 
 def counts_from_compact(
@@ -161,10 +228,13 @@ def counts_from_compact(
     _check(p, "p", torch.int8, 2)
     if xy.shape[1] != 2 or p.shape != (xy.shape[0], xy.shape[2]):
         raise ValueError(f"shape mismatch: xy {tuple(xy.shape)}, p {tuple(p.shape)}")
-    if device_kind(xy, p) == "cpu":
-        return _plain_into(counts_plain(xy[:, 0], xy[:, 1], p, sensor_size), out)
-    return _launch(_lib().rasterize_counts_compact, (xy.data_ptr(), p.data_ptr()), xy,
-                   sensor_size, True, out)
+    device_kind(xy, p)
+    h, w = int(sensor_size[0]), int(sensor_size[1])
+    if out is None:
+        return compact_op(xy, p, h, w)
+    _check_out(out, xy, h, w)
+    compact_into_op(xy, p, h, w, out)
+    return out
 
 
 def counts_from_events(
@@ -174,8 +244,10 @@ def counts_from_events(
     _check(events, "events", torch.float32, 3)
     if events.shape[1] != 4:
         raise ValueError(f"events must be [G, 4, N], got {tuple(events.shape)}")
-    if device_kind(events) == "cpu":
-        return _plain_into(
-            counts_plain(events[:, 0], events[:, 1], events[:, 3], sensor_size), out)
-    return _launch(_lib().rasterize_counts_f32, (events.data_ptr(),), events, sensor_size,
-                   False, out)
+    device_kind(events)
+    h, w = int(sensor_size[0]), int(sensor_size[1])
+    if out is None:
+        return events_op(events, h, w)
+    _check_out(out, events, h, w)
+    events_into_op(events, h, w, out)
+    return out

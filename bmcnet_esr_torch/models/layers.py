@@ -133,6 +133,12 @@ class QuantConv(Conv):
     While ``calib`` is a dict (calibration), each call records the lane's
     running ``max|x|`` there, and its |x| quantiles when ``calib`` has an
     ``act_q`` entry.
+
+    :meth:`freeze` fixes the quantized weights as the buffers ``frozen_wq``,
+    ``frozen_sw`` and ``frozen_packed`` (not part of the state dict), which
+    the forward then reads instead of the weight cache: what ``torch.export``
+    traces, so that an exported program carries int8 (and, on CUDA, packed)
+    weights and quantizes none per call.  :meth:`thaw` drops them.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int, dtype: torch.dtype, mode: str):
@@ -141,13 +147,25 @@ class QuantConv(Conv):
         self.quantize_kernel = mode in ("pquant", "chainq")
         self.qat = mode == "qat"
         self.register_buffer("act_scale", None, persistent=False)
+        for name in ("frozen_wq", "frozen_sw", "frozen_packed"):
+            self.register_buffer(name, None, persistent=False)
         self.calib: Optional[dict] = None
         self._wcache = None
 
+    def freeze(self) -> None:
+        """Serve the weights quantized now from buffers until :meth:`thaw`."""
+        self.frozen_wq, self.frozen_sw, self.frozen_packed = self._quantized_weights()
+
+    def thaw(self) -> None:
+        self.frozen_wq = self.frozen_sw = self.frozen_packed = None
+
     def _quantized_weights(self):
-        """``(wq, sw, packed)`` in the kernels' layouts, recomputed when the
-        weight is replaced, moved or written in place (``load_state_dict``
-        copies into it, which bumps its version)."""
+        """``(wq, sw, packed)`` in the kernels' layouts: the frozen buffers
+        when there are any, else from a cache recomputed when the weight is
+        replaced, moved or written in place (``load_state_dict`` copies into
+        it, which bumps its version)."""
+        if self.frozen_wq is not None:
+            return self.frozen_wq, self.frozen_sw, self.frozen_packed
         w = self.weight
         key = (w.data_ptr(), w.device, w._version)
         if self._wcache is None or self._wcache[0] != key:

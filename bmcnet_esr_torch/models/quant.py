@@ -14,13 +14,15 @@ Where the JAX package returns variables with a ``quant`` collection, the
 port installs the scales into the modules' ``act_scale`` buffers, which are
 not part of the state dict: the checkpoint format does not change.
 ``calibrate_from_h5`` calibrates from the first windows of a recording (the
-serving CLI's ``--calib_h5``); its array part after the file read is
-``_calibrate_from_events``.
+serving and export CLIs' ``--calib_h5``); its array part after the file
+read is ``_calibrate_from_events``.  ``frozen_weights`` fixes the int8
+weights for ``torch.export`` (``inference/export.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +53,25 @@ def set_act_scales(model: torch.nn.Module, scales: Optional[Mapping[str, torch.T
         s = (scales or {}).get(name)
         m.act_scale = None if s is None else torch.as_tensor(
             s, dtype=torch.float32, device=m.weight.device).reshape(-1).clone()
+
+
+@contextlib.contextmanager
+def frozen_weights(model: torch.nn.Module) -> Iterator[None]:
+    """Within: every ``QuantConv`` of ``model`` serves the weights quantized
+    (and, on CUDA, packed) on entry from buffers, and reads neither its
+    float weight nor its weight cache, so that ``torch.export`` can trace it
+    and carries the int8 weights in the program.  Raises while calibration
+    records (a traced program would bake in one recording's side effects)."""
+    convs = quant_convs(model).values()
+    if any(m.calib is not None for m in convs):
+        raise RuntimeError("calibration is recording: finish it before freezing the weights")
+    for m in convs:
+        m.freeze()
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.thaw()
 
 
 def _stats_to_scales(

@@ -2,6 +2,8 @@
 
 Counterpart of ``bmcnet_esr_tpu/ops/batch.py``: ``compact_events`` is the
 host-side transfer compaction (``batch.py:62-91``, kept bit for bit);
+``pad_window`` the serving paths' window padding (``inference/streaming.py``
+of the JAX package, bit for bit);
 ``batch_events_to_counts`` / ``batch_counts_from_compact`` rasterize
 ``[..., 4, N]`` raw or compact windows into ``[..., H, W, 2]`` NHWC count
 images through :mod:`bmcnet_esr_torch.kernels.rasterize` (the CUDA kernel for
@@ -46,6 +48,28 @@ def compact_events(events) -> Tuple[np.ndarray, np.ndarray]:
     xy = xy.astype(np.int16)
     p = events[..., 3, :].astype(np.int8)
     return xy, p
+
+
+def pad_window(events: np.ndarray, window_size: int) -> np.ndarray:
+    """Zero-pad an event window to ``window_size`` and normalize its
+    timestamps to [0, 1] (``(ts - t0) / (t1 - t0 + 1e-6)``).  Accepts ``[4,
+    n]`` or batched ``[B, 4, n]`` and keeps the layout.  The padding for the
+    full-event surfaces (``StreamingSR``, ``ExportedStream``, int8
+    calibration); the pool's compact push paths use ``pad_window_compact``."""
+    events = np.asarray(events, np.float32)
+    batched = events.ndim == 3
+    if not batched:
+        events = events[None]
+    b, _, n = events.shape
+    if n > window_size:
+        raise ValueError(f"window of {n} events exceeds window_size {window_size}")
+    out = np.zeros((b, 4, window_size), np.float32)
+    out[:, :, :n] = events
+    if n:
+        ts = out[:, 2, :n]
+        t0, t1 = ts[:, :1], ts[:, n - 1 : n]
+        out[:, 2, :n] = (ts - t0) / (t1 - t0 + 1e-6)
+    return out if batched else out[0]
 
 
 def batch_counts_from_compact(

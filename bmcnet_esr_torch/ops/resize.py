@@ -69,18 +69,25 @@ def _matrix(in_size: int, out_size: int, mode: str, device: torch.device) -> tor
     return torch.from_numpy(_resize_matrix(in_size, out_size, mode)).to(device)
 
 
+def _matrix_for(in_size: int, out_size: int, mode: str, device: torch.device) -> torch.Tensor:
+    # a trace (torch.export) makes fake tensors: keep them out of the cache
+    # that eager calls read; the program takes the matrix as a constant
+    fn = _matrix.__wrapped__ if torch.compiler.is_compiling() else _matrix
+    return fn(in_size, out_size, mode, device)
+
+
 def _resize(x: torch.Tensor, out_hw: Tuple[int, int], mode: str, channel_last: bool) -> torch.Tensor:
     x = x.to(torch.promote_types(x.dtype, torch.float32))
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     if channel_last:  # [..., H, W, C]
         *lead, in_h, in_w, c = x.shape
-        my = _matrix(in_h, out_h, mode, x.device)
-        mx = _matrix(in_w, out_w, mode, x.device)
+        my = _matrix_for(in_h, out_h, mode, x.device)
+        mx = _matrix_for(in_w, out_w, mode, x.device)
         y = torch.matmul(my, x.reshape(*lead, in_h, in_w * c)).reshape(*lead, out_h, in_w, c)
         return torch.matmul(mx, y)  # [P, W] @ [..., O, W, C] -> [..., O, P, C]
     in_h, in_w = x.shape[-2], x.shape[-1]
-    my = _matrix(in_h, out_h, mode, x.device)
-    mx = _matrix(in_w, out_w, mode, x.device)
+    my = _matrix_for(in_h, out_h, mode, x.device)
+    mx = _matrix_for(in_w, out_w, mode, x.device)
     return torch.matmul(torch.matmul(my, x), mx.T)
 
 

@@ -63,11 +63,22 @@ failure:
    engine, then ``EventSRServer`` on loopback in bfloat16 and int8_pall
    (1 and 8 client threads, a pipelining client with a RELOAD), every PRED
    equal to a pool replay of the same pushes, each kernel's launches per
-   tick against the model's count, timed and profiled per tick.
+   tick against the model's count, timed and profiled per tick;
+9. serving bundles (after phase 8): the full model exported with
+   ``export_serving_bundle`` and served by ``ExportedStream`` in this
+   process, float32 and int8_pall (static scales), each bit-exact against
+   ``StreamingSR`` over 16 windows with each kernel's launches a push
+   against the model's count; an int8_pall bundle of 8 lanes against the
+   1-lane bundle on each stream; ms/window of the bundle against
+   ``StreamingSR``; and the host cost of a call through each operator
+   (``torch.ops.bmcnet.*``) against a direct call of its CUDA
+   implementation and against the same implementation as a ``custom_op``.
 
-The last line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a
-subset of phases 2b-8 after the build, for work on one of them, and then
-prints no result line.
+Every kernel is called through its ``torch.library`` operator; the
+rasterizer's ``out=`` form through the operator's ``.into`` overload.  The
+last line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
+of phases 2b-9 after the build, for work on one of them, and then prints no
+result line.
 """
 
 from __future__ import annotations
@@ -1877,7 +1888,212 @@ def phase_serve(dev, card: str) -> dict:
     return totals
 
 
-PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing", "serve", "train")
+EXPORT_WINDOWS, EXPORT_LANES, EXPORT_LANE_WINDOWS = 16, 8, 6
+# the tick of the int8_pall pool: operator calls per forward (3x3 convs and
+# 1x1 convs of the full model, site_counts) and the one rasterizer call
+TICK_OP_CALLS = sum(site_counts("full")[:2]) + 1
+
+
+def host_us(fn, args, n: int = 2000) -> float:
+    """Host microseconds per call of ``fn(*args)``, ``n`` calls back to back
+    after a warm-up, the card synchronized before and after.  At the tiny
+    shapes given here each call's kernel takes a few microseconds, less than
+    the host spends on the call, so this is the host's cost."""
+    import torch
+
+    for _ in range(50):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def dispatch_cost(dev) -> dict:
+    """Host cost per call of each operator, ``torch.ops.bmcnet.X``, against a
+    direct call of the CUDA implementation it registers, and against the
+    same implementation registered with ``torch.library.custom_op`` (the
+    registration that the port does not use), at tiny shapes, under
+    inference mode as the serving paths run; medians of three repeats in
+    turns.  Returns ``{op: {"op_us", "direct_us", "custom_op_us"}}``."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.kernels import qconv, qmm, quantize, rasterize
+    from bmcnet_esr_torch.ops.batch import compact_events
+
+    rng = np.random.default_rng(5)
+    ev = random_windows(rng, 1, 64, (4, 8))
+    xy, p = (torch.from_numpy(a).to(dev) for a in compact_events(ev))
+    x = torch.from_numpy(rng.normal(0, 1, (1, 4, 8, 32)).astype(np.float32)).to(dev).bfloat16()
+    sx = torch.full((1,), 0.02, device=dev)
+    wq3, sw3 = qconv.quantize_weights3x3(torch.from_numpy(
+        rng.normal(0, 0.1, (3, 3, 32, 32)).astype(np.float32)).to(dev))
+    wq1, sw1 = qmm.quantize_weights(torch.from_numpy(
+        rng.normal(0, 0.1, (32, 32)).astype(np.float32)).to(dev))
+    bias = torch.zeros(32, device=dev)
+    ops = torch.ops.bmcnet
+    cases = {
+        "rasterize_counts_compact": (ops.rasterize_counts_compact.default,
+                                     rasterize._compact_cuda, (xy, p, 4, 8)),
+        "rasterize_counts_f32": (ops.rasterize_counts_f32.default, rasterize._events_cuda,
+                                 (torch.from_numpy(ev).to(dev), 4, 8)),
+        "quantize_act": (ops.quantize_act.default, quantize._quantize_cuda, (x, sx, False)),
+        "quant_matmul": (ops.quant_matmul.default, qmm._qmm_cuda,
+                         (x.view(1, 32, 32), wq1, sw1, sx, bias, torch.bfloat16,
+                          qmm.pack_weights(wq1))),
+        "quant_conv3x3": (ops.quant_conv3x3.default, qconv._qconv_cuda,
+                          (x, wq3, sw3, sx, bias, torch.bfloat16, None, False,
+                           qconv.pack_weights3x3(wq3))),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (op, impl, args) in cases.items():
+            schema = "(" + str(op._schema).split("(", 1)[1]
+            twin = torch.library.custom_op(f"bmcnet_probe::{name}", impl, mutates_args=(),
+                                           schema=schema)
+            check(torch.equal(op(*args), twin(*args)), f"dispatch {name}: the twin differs")
+            runs = {"op_us": [], "direct_us": [], "custom_op_us": []}
+            for order in ((op, impl, twin), (twin, impl, op), (op, impl, twin)):
+                for fn in order:
+                    key = "op_us" if fn is op else "direct_us" if fn is impl else "custom_op_us"
+                    runs[key].append(host_us(fn, args))
+            out[name] = {k: sorted(v)[1] for k, v in runs.items()}
+    return out
+
+
+def phase_export(dev, card: str) -> dict:
+    """Serving bundles of the full model (n_c=128, n_b=5, x4, 45x80, windows
+    of 2048 events): a float32 and an int8_pall (static scales) bundle
+    exported and loaded in this process, each equal to ``StreamingSR`` bit
+    for bit over 16 windows, launches counted per push; an int8_pall batch-8
+    bundle's lanes against the batch-1 bundle on each stream; ms/window of
+    the bundle against ``StreamingSR``; the operators' dispatch cost.
+    Returns each kernel's launches made by the bundles."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.inference import ExportedStream, StreamingSR, export_serving_bundle
+
+    mods = {n: importlib.import_module(f"bmcnet_esr_torch.kernels.{n}") for n in KERNEL_MODULES}
+    totals = {KERNEL_NAMES[n]: 0 for n in KERNEL_MODULES}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(24)
+    wins = serve_windows(rng, EXPORT_WINDOWS)
+    served = {}
+    with tempfile.TemporaryDirectory(prefix="bundles-") as tmp:
+        for dtype in ("float32", "int8_pall"):
+            model = serve_model(dtype, dev)
+            t = time.perf_counter()
+            path = export_serving_bundle(model, None, os.path.join(tmp, dtype), LR, N_LR,
+                                         device=dev)
+            t_export = time.perf_counter() - t
+            t = time.perf_counter()
+            bundle = ExportedStream(path, device=dev)
+            t_load = time.perf_counter() - t
+            live = StreamingSR(model, None, LR, N_LR, device=dev)
+            per_push = {"rasterize_counts": 1, **expected_launches("full", dtype, 1, 0)}
+            for i, ev in enumerate(wins):
+                want = live.push(ev)
+                zero_counts(mods)
+                got = bundle.push(ev)
+                pushed = counts(mods)
+                for k, v in pushed.items():
+                    totals[k] += v
+                check(pushed == per_push, f"export {dtype}: push {i} launched {pushed}, the model "
+                                          f"gives {per_push}")
+                if want is None:
+                    check(got is None, f"export {dtype}: the first window gave a prediction")
+                    continue
+                check(got.shape == (1, *GT, 2) and np.array_equal(got[0], want),
+                      f"export {dtype}: window {i} differs from StreamingSR")
+            same = all(torch.equal(a, b) for a, b in zip(bundle._carry, live._carry))
+            check(same and torch.equal(bundle._prev_frame, live._prev_frame),
+                  f"export {dtype}: the carry differs from StreamingSR's")
+            size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            print(f"export {dtype}: bundle of {size / 2**20:.1f} MiB exported in {t_export:.1f} s, "
+                  f"loaded in {t_load:.1f} s; {EXPORT_WINDOWS} windows bit-exact against "
+                  f"StreamingSR, carry included; launches a push {per_push}")
+            # ms/window in turns (live, bundle, bundle, live), the first window
+            # of each stream outside the clock
+            walls = {"live": [], "bundle": []}
+            for who in ("live", "bundle", "bundle", "live"):
+                stream = live if who == "live" else bundle
+                stream.reset()
+                stream.push(wins[0])
+                t = time.perf_counter()
+                for ev in wins[1:]:
+                    stream.push(ev)
+                walls[who].append((time.perf_counter() - t) * 1e3 / (EXPORT_WINDOWS - 1))
+
+            def rollout(stream):
+                for ev in wins[1:5]:
+                    stream.push(ev)
+
+            prof = {}
+            for who, stream in (("StreamingSR", live), ("ExportedStream", bundle)):
+                stream.reset()
+                stream.push(wins[0])  # the first window runs no forward in StreamingSR
+                prof[who] = _profiled(lambda: rollout(stream), 4, f"export {dtype} {who}",
+                                      "window")
+            print(f"export timing {dtype}: ExportedStream {min(walls['bundle']):.3f} / "
+                  f"{max(walls['bundle']):.3f} ms/window, StreamingSR {min(walls['live']):.3f} / "
+                  f"{max(walls['live']):.3f} ms/window (two runs each, in turns); profiled: "
+                  + "; ".join(f"{who} wall {p['wall_ms']:.3f}, device busy {p['busy_ms']:.3f} "
+                              f"ms/window, {p['launches']:.0f} launches/window"
+                              for who, p in prof.items()) + f" on {card}")
+            served[dtype] = bundle
+            del live, model
+
+        # lanes of a batch-8 int8_pall bundle against the batch-1 bundle
+        model = serve_model("int8_pall", dev)
+        b8 = ExportedStream(export_serving_bundle(model, None, os.path.join(tmp, "int8_pall_b8"),
+                                                  LR, N_LR, batch=EXPORT_LANES, device=dev),
+                            device=dev)
+        streams = [serve_windows(rng, EXPORT_LANE_WINDOWS) for _ in range(EXPORT_LANES)]
+        batched = []
+        for j in range(EXPORT_LANE_WINDOWS):
+            zero_counts(mods)
+            batched.append(b8.push(np.stack([s[j] for s in streams])))
+            pushed = counts(mods)
+            for k, v in pushed.items():
+                totals[k] += v
+            check(pushed == {"rasterize_counts": 1, **expected_launches("full", "int8_pall", 1, 0)},
+                  f"export int8_pall batch {EXPORT_LANES}: push {j} launched {pushed}")
+        b1, worst = served["int8_pall"], (0.0, 0.0)
+        for lane, ws in enumerate(streams):
+            b1.reset()
+            solo = [b1.push(w) for w in ws]
+            d = lane_errors([b[lane] for b in batched[1:]], [s[0] for s in solo[1:]])
+            worst = max(worst[0], d[0]), max(worst[1], d[1])
+        check(worst[1] <= SERVE_BOUND, f"export int8_pall batch {EXPORT_LANES}: lane rel-RMSE "
+                                       f"{worst[1]} against the batch-1 bundle")
+        print(f"export int8_pall batch {EXPORT_LANES}: each lane over {EXPORT_LANE_WINDOWS} "
+              f"windows against the batch-1 bundle on its stream: max|d|/max|x| {worst[0]:.3e}, "
+              f"rel-RMSE {worst[1]:.3e} (bound {SERVE_BOUND})")
+        del b8, model, served
+
+    cost = dispatch_cost(dev)
+    for name, c in cost.items():
+        print(f"export dispatch {name}: torch.ops.bmcnet {c['op_us']:.2f} us a call, the CUDA "
+              f"implementation called directly {c['direct_us']:.2f} us, as a custom_op "
+              f"{c['custom_op_us']:.2f} us: the operator adds {c['op_us'] - c['direct_us']:.2f} "
+              f"us (custom_op would add {c['custom_op_us'] - c['direct_us']:.2f})")
+    per_call = {k: cost[k]["op_us"] - cost[k]["direct_us"] for k in cost}
+    n3, n1, _ = site_counts("full")
+    tick = (n3 * per_call["quant_conv3x3"] + n1 * per_call["quant_matmul"]
+            + per_call["rasterize_counts_compact"]) / 1e3
+    print(f"export dispatch per int8_pall tick ({TICK_OP_CALLS} operator calls: {n3} "
+          f"quant_conv3x3, {n1} quant_matmul, 1 rasterizer): {tick:.3f} ms on {card}")
+    print(f"export phase: {time.perf_counter() - t0:.1f} s, kernel launches of the bundles {totals}")
+    return totals
+
+
+PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing", "serve", "export", "train")
 
 
 def main(argv=None) -> int:
@@ -1934,6 +2150,9 @@ def main(argv=None) -> int:
     if "serve" in phases:  # early: the profiler loses records late in a long run
         serve_launches = phase_serve(dev, card)
         done("serve")
+    if "export" in phases:
+        export_launches = phase_export(dev, card)
+        done("export")
     if "train" in phases:  # before the rollouts: its profile counts the rasterizer's kernels
         train_launches = phase_train(dev, card)
         done("train")
@@ -1953,7 +2172,7 @@ def main(argv=None) -> int:
         "source": "bmcnet_esr_torch/csrc/rasterize.cu",
         "replaces": "bmcnet_esr_tpu/ops/pallas/rasterize.py:44",
         "launches": (launches["rasterize_counts"] + train_launches["rasterize_counts"]
-                     + serve_launches["rasterize_counts"]),
+                     + serve_launches["rasterize_counts"] + export_launches["rasterize_counts"]),
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -1970,7 +2189,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": f"bmcnet_esr_torch/csrc/{src}",
             "replaces": f"bmcnet_esr_tpu/ops/pallas/{body}",
-            "launches": launches[name] + serve_launches[name],
+            "launches": launches[name] + serve_launches[name] + export_launches[name],
             "max_abs_err": errs8[name],
             "ms": o["ms"],
             "plain_ms": o["plain_ms"],
@@ -1980,8 +2199,11 @@ def main(argv=None) -> int:
         })
     print(f"rasterizer launches: {launches['rasterize_counts']} on the inference path, "
           f"{train_launches['rasterize_counts']} on the training path, "
-          f"{serve_launches['rasterize_counts']} on the serving path; int8 kernels on the "
-          f"serving path: { {k: v for k, v in serve_launches.items() if k != 'rasterize_counts'} }")
+          f"{serve_launches['rasterize_counts']} on the serving path, "
+          f"{export_launches['rasterize_counts']} through serving bundles; int8 kernels on the "
+          f"serving path: { {k: v for k, v in serve_launches.items() if k != 'rasterize_counts'} }"
+          f", through bundles: "
+          f"{ {k: v for k, v in export_launches.items() if k != 'rasterize_counts'} }")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

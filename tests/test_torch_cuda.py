@@ -531,3 +531,70 @@ def test_pool_fetch_waits_for_its_own_tick_only(cuda):
     assert not f2.is_ready()
     f2.get()
     assert f2.is_ready()
+
+
+# -- operators and serving bundles -------------------------------------------------
+
+
+def test_operators_take_the_cuda_registration(cuda):
+    """Each operator called on CUDA tensors runs its CUDA registration (the
+    kernel's launch count moves by one, never the plain version's) and
+    equals the CPU registration on the same inputs."""
+    rng = np.random.default_rng(11)
+    ev = _events(11, 2, 256, (9, 13))
+    xy, p = (torch.from_numpy(a) for a in compact_events(ev))
+    x = torch.from_numpy(rng.normal(0, 1, (2, 5, 6, 40)).astype(np.float32)).bfloat16()
+    sx = torch.tensor([0.02, 0.03])
+    wq3, sw3 = qconv.quantize_weights3x3(torch.from_numpy(
+        rng.normal(0, 0.1, (3, 3, 40, 24)).astype(np.float32)))
+    wq1, sw1 = qmm.quantize_weights(torch.from_numpy(rng.normal(0, 0.1, (40, 24)).astype(np.float32)))
+    bias = torch.from_numpy(rng.normal(0, 0.1, 24).astype(np.float32))
+    ops = torch.ops.bmcnet
+    cases = [
+        (rasterize, ops.rasterize_counts_compact.default, (xy, p, 9, 13)),
+        (rasterize, ops.rasterize_counts_f32.default, (torch.from_numpy(ev), 9, 13)),
+        (quantize, ops.quantize_act.default, (x, sx, True)),
+        (qmm, ops.quant_matmul.default, (x.view(2, 30, 40), wq1, sw1, sx, bias, torch.float32, None)),
+        (qconv, ops.quant_conv3x3.default,
+         (x, wq3, sw3, sx, bias, torch.bfloat16, torch.tensor([0.5, 0.25]), True, None)),
+    ]
+    for mod, op, args in cases:
+        want = op(*args)
+        on_card = tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args)
+        before = mod.launches
+        got = op(*on_card)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1, op
+        assert got.is_cuda and torch.equal(got.cpu(), want), op
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8_pall"])
+def test_bundle_on_cuda_equals_streaming_sr(cuda, dtype, tmp_path):
+    """A bundle exported and served on the card equals StreamingSR on the
+    card bit for bit (same operators, same cuDNN calls); int8_pall on static
+    scales, one rasterizer launch and the model's int8 launches a push."""
+    from bmcnet_esr_torch.inference import ExportedStream, StreamingSR, export_serving_bundle
+    from bmcnet_esr_torch.inference.engine import DTYPES, INT8_DTYPES
+    from bmcnet_esr_torch.models import calibrate_act_scales
+
+    hw, n = (12, 16), 256
+    m = BMCNet(scale=2, n_c=16, n_b=2, dtype=DTYPES.get(dtype, torch.bfloat16),
+               quant=INT8_DTYPES.get(dtype, False), generator=torch.Generator().manual_seed(0))
+    m = m.to(cuda, memory_format=torch.channels_last).eval()
+    if m.quant:
+        pairs = torch.from_numpy(
+            np.random.default_rng(3).poisson(0.7, (3, 1, 2, *hw, 2)).astype(np.float32)).to(cuda)
+        calibrate_act_scales(m, pairs, m.init_state(1, *hw))
+    path = export_serving_bundle(m, None, str(tmp_path / dtype), hw, n, device=cuda)
+    served = ExportedStream(path, device=cuda)
+    live = StreamingSR(m, None, hw, n, device=cuda)
+    for i, ev in enumerate(_events(5, 4, n, hw)):
+        want = live.push(ev)
+        before = (rasterize.launches, qconv.launches)
+        got = served.push(ev)
+        assert rasterize.launches == before[0] + 1
+        assert qconv.launches - before[1] == (51 if m.quant else 0)  # 11 + 20 * n_b 3x3 sites
+        if want is None:
+            assert got is None
+            continue
+        np.testing.assert_array_equal(got[0], want, err_msg=f"window {i}")
