@@ -191,6 +191,33 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"chip smoke check failed: {msg}")
 
 
+# Every trace here opens and closes on an idle device, with this much host
+# time between an edge and the work it frames.  The profiler drops device
+# records that lie close inside a trace's edges, the more the longer the
+# process has run: a training iteration's first kernels (the rasterizer's)
+# went missing from a trace late in a run, and so did the first quarter of
+# a short loop of kernel calls.
+PROFILE_EDGE_S = 0.1
+
+
+def profile_edge() -> None:
+    """Drain the device, then let ``PROFILE_EDGE_S`` of host time pass."""
+    import torch
+
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_EDGE_S)
+
+
+def first_device_ms(prof) -> float:
+    """How long after the trace opened its first device record starts, on
+    the profiler's clock (ms); with ``profile_edge`` at the opening, the
+    cushion less this is how far the device clock ran behind the host's."""
+    from torch.autograd import DeviceType
+
+    starts = [e.time_range.start for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return min(starts) / 1e3 if starts else float("nan")
+
+
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean ms per call, CUDA events around ``iters`` back-to-back calls.
     Where a call's host work (Python, ctypes, small allocations) takes
@@ -212,10 +239,11 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int = 0) -> float:
     """Mean device time per call: the summed duration of every kernel,
     copy and fill that ``iters`` calls put on the card (``torch.profiler``),
-    free of the host's launch overhead.  The profiler here now and then
-    returns a trace with no device record, or with only a part of them
-    (seen late in a long process: a quarter of the launches made through
-    ctypes).  So where the caller knows that ``fn`` puts ``launches`` kernels
+    free of the host's launch overhead.  The trace opens and closes on an
+    idle device (``profile_edge``).  The profiler here has returned a trace
+    with no device record, or with only a part of them (late in a long
+    process, before the edges had a cushion: a quarter of the launches
+    made through ctypes).  So where the caller knows that ``fn`` puts ``launches`` kernels
     on the card, the time is the mean over the records that did arrive,
     times ``launches``; otherwise the number of records must be a multiple
     of ``iters``, and a trace that fails this is taken again (at most
@@ -230,9 +258,10 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, launches: int = 0) -> float:
     for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profile_edge()
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
+            profile_edge()
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         us, n = sum(e.self_device_time_total for e in rows), sum(e.count for e in rows)
         if launches and n > 0:
@@ -379,8 +408,9 @@ def device_records(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profile_edge()
         fn()
-        torch.cuda.synchronize()
+        profile_edge()
     return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
@@ -992,10 +1022,12 @@ def _profiled(fn, n: int, name: str, what: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_edge()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        time.sleep(PROFILE_EDGE_S)
     # kernel rows only: operator rows repeat the time of the kernels they launch
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_time = lambda e: e.self_device_time_total  # noqa: E731
@@ -1121,13 +1153,13 @@ def profile_training(tr, start: int, n: int) -> dict:
     """Device records of ``n`` iterations of ``tr.train`` from ``start``,
     after one more that warms the profiler up (device activity only: host
     records slow a loop of ~40,000 launches an iteration twice over).  The
-    device is drained at the window's two edges, so the trace holds exactly
-    the window's kernels.  Per iteration: the device's timeline from the end
-    of the warm-up iteration to the end of the last, its busy time (kernels,
-    copies, fills), the idle share, the records, the rasterizer's band
-    kernels, and the kernels that take most of the time.  The profiler here
-    now and then drops records of the kernels launched through ctypes (seen
-    late in a long process), so a trace whose band kernels are not two an
+    window opens and closes on an idle device (``profile_edge``), so the
+    trace holds exactly the window's kernels.  Per iteration: the device's
+    timeline from the window's opening to the end of the last iteration,
+    its busy time (kernels, copies, fills), the idle share, the records,
+    the rasterizer's band kernels, and the kernels that take most of the
+    time; also when the first device record starts after the opening
+    (``first_device_ms``).  A trace whose band kernels are not two an
     iteration is taken again, at most twice, and said so.  The profiled
     iterations write no checkpoint."""
     import torch
@@ -1145,9 +1177,13 @@ def profile_training(tr, start: int, n: int) -> dict:
                 done = torch.cuda.Event(enable_timing=True)
                 done.record()
                 marks.append(done)
-                if len(marks) in (1, n + 1):  # the window's edges
-                    torch.cuda.synchronize()
+                if len(marks) in (1, n + 1):  # the window opens or closes
+                    profile_edge()
                 prof.step()
+                if len(marks) == 1:
+                    profile_edge()
+                    marks[0] = torch.cuda.Event(enable_timing=True)
+                    marks[0].record()
                 return state, m
 
             tr.train_step, tr.iterations = stepping, start + 1 + n
@@ -1156,16 +1192,19 @@ def profile_training(tr, start: int, n: int) -> dict:
         start += 1 + n
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         band = sum(e.count for e in rows if "band_kernel" in e.key) / n
+        first = first_device_ms(prof)
         if band == 2:
             break
         print(f"profile_training: trace {attempt + 1} holds {band} rasterizer kernels an "
-              "iteration of the 2 launched, again")
+              f"iteration of the 2 launched ({sum(e.count for e in rows) / n:.0f} records and "
+              f"{sum(e.self_device_time_total for e in rows) / 1e3 / n:.3f} device ms an "
+              f"iteration, the first record {first:.3f} ms after the opening), again")
     span = marks[0].elapsed_time(marks[-1]) / n
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
     top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:4]
     return {
         "span_ms": span, "busy_ms": busy, "idle": 1 - busy / span, "band": band,
-        "launches": sum(e.count for e in rows) / n,
+        "launches": sum(e.count for e in rows) / n, "first_ms": first,
         "top": "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3 / n:.3f} ms "
                          f"x{e.count / n:.0f}" for e in top),
     }
@@ -1349,7 +1388,9 @@ def phase_train(dev, card: str) -> dict:
                   f"{len(steps)}, min {min(steps):.3f}, max {max(steps):.3f}); profiled: "
                   f"{p['span_ms']:.3f} ms/iteration, device busy {p['busy_ms']:.3f} "
                   f"ms/iteration, idle share {p['idle']:.1%}, {p['launches']:.0f} kernel "
-                  f"launches/iteration ({band:.0f} rasterizer); peak memory "
+                  f"launches/iteration ({band:.0f} rasterizer; the first device record "
+                  f"{p['first_ms']:.3f} ms after the window opened, {PROFILE_EDGE_S * 1e3:.0f} ms "
+                  f"of host time after it); peak memory "
                   f"{peak / 2**30:.2f} GiB; loss {losses[0]:.6f} -> {losses[-1]:.6f} on a "
                   f"fixed batch; cuDNN deterministic {det}; on {card}; top kernels: {p['top']}")
             del tr
