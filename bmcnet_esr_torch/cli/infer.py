@@ -11,8 +11,10 @@ The rollout is the stride-1 stateful pass of the reference scripts;
 change its outputs.  ``--dtype int8*`` runs the int8 serving modes (static
 scales calibrated on each file's first windows).  ``--model_path`` may be a
 training checkpoint directory of the port (``iteration_<N>/`` or ``best/``);
-``--ema`` serves its EMA.  ``--mesh_devices > 1`` is not ported yet and
-exits naming its ROADMAP.md item.
+``--ema`` serves its EMA.  ``--mesh_devices N`` splits each group of
+``--batch_streams`` files over N devices, one model replica each: the first
+N GPUs with ``--device cuda`` (more than are visible raises), N times the
+CPU with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -66,7 +68,9 @@ def main(argv=None):
     p.add_argument("--real_world_test", action="store_true")
     p.add_argument("--chunk_size", type=int, default=32)
     p.add_argument("--mesh_devices", type=int, default=0,
-                   help="not ported yet: values above 1 exit (ROADMAP.md Queue 1 item 8)")
+                   help="shard batched multi-stream rollouts over N devices (N must divide "
+                        "--batch_streams, else a group runs unsharded; 0/1 = one device). "
+                        "Sharded streams equal their unsharded rollouts")
     p.add_argument("--batch_streams", type=int, default=1,
                    help="roll out N same-resolution files as one batch (skips PNGs)")
     p.add_argument("--dtype", type=str, default="float32",
@@ -84,9 +88,6 @@ def main(argv=None):
                    help="cuda (default; fails without a GPU) or cpu")
     args = p.parse_args(argv)
 
-    if args.mesh_devices > 1:
-        raise SystemExit("--mesh_devices > 1: sharded rollouts are not ported yet "
-                         "(ROADMAP.md Queue 1 item 8)")
     if args.seqn != 2:
         # the models read only the first two windows of a seqn-window
         print(f"note: seqn={args.seqn} behaves identically to seqn=2 "
@@ -111,6 +112,12 @@ def main(argv=None):
         args.model_path, args.scale, args.n_c, args.n_b, args.variant,
         dtype=args.dtype, device=args.device, use_ema=args.ema,
     )
+    mesh = None
+    if args.mesh_devices > 1:
+        from bmcnet_esr_torch.parallel import make_mesh
+
+        cpu = [args.device] * args.mesh_devices if args.device == "cpu" else None
+        mesh = make_mesh(args.mesh_devices, devices=cpu)
     extra = tuple(m for m, on in (("psnr", args.psnr), ("ssim", args.ssim)) if on)
     engine = InferenceEngine(
         model,
@@ -118,6 +125,7 @@ def main(argv=None):
         chunk_size=args.chunk_size,
         visualize=not args.no_images,
         extra_metrics=extra,
+        mesh=mesh,
         device=args.device,
     )
     out = engine.infer_datalist(

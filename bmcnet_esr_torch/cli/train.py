@@ -6,14 +6,25 @@
 
 Overrides address config paths with ``;`` separators (reference
 ``config/parser.py:93-112``).  ``--device`` defaults to ``cuda`` and fails
-without a GPU; ``--device cpu`` trains on the CPU.  ``--distributed`` is not
-ported yet (ROADMAP.md Queue 1 item 8).
+without a GPU; ``--device cpu`` trains on the CPU.
+
+Data-parallel training runs one process per GPU under torchrun, which sets
+the ranks' environment; ``--distributed`` joins its process group (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and leaves it on exit, the
+counterpart of ``jax.distributed.initialize()``::
+
+    torchrun --nnodes=1 --nproc_per_node=8 -m bmcnet_esr_torch.cli.train \
+        -c configs/train_nfs.yml --distributed
+
+``batch_size`` is then each node's batch, split over its ranks.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import datetime
+import logging
 import random
 from typing import List, Tuple
 
@@ -49,16 +60,29 @@ def main(argv=None):
     p.add_argument("-o", "--override", nargs=2, action="append",
                    metavar=("PATH", "VALUE"), help="config override: 'a;b;c' value")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported yet: multi-process training (ROADMAP.md Queue 1 item 8)")
+                   help="data-parallel training: join the process group torchrun describes "
+                        "(one process per GPU; batch_size is each node's batch)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; fails without a GPU) or cpu")
     args = p.parse_args(argv)
 
-    if args.distributed:
-        raise NotImplementedError("--distributed: multi-process training is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
-
     import torch
+
+    device = args.device
+    if args.distributed:
+        from bmcnet_esr_torch.parallel import init_distributed
+
+        device = init_distributed(args.device)
+    try:
+        return _train(args, device)
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device):
+    import torch
+    import torch.distributed as dist
 
     # host-side RNGs; the parameters come from their own seeded generator
     random.seed(args.seed)
@@ -67,12 +91,22 @@ def main(argv=None):
 
     from bmcnet_esr_torch.training.config import RunConfig
     from bmcnet_esr_torch.training.trainer import Trainer
-    from bmcnet_esr_torch.utils.logging import get_logger
+    from bmcnet_esr_torch.utils.logging import get_logger, setup_logging
 
-    run = RunConfig.from_file(args.config, runid=args.runid, overrides=parse_overrides(args))
+    runid, writer = args.runid, True
+    if args.distributed:
+        # one run directory for all ranks, named by rank 0; rank 0 alone
+        # writes it, the log file and the checkpoints
+        shared = [runid or datetime.datetime.now().strftime("%m%d_%H%M%S")]
+        dist.broadcast_object_list(shared, src=0)
+        runid, writer = shared[0], dist.get_rank() == 0
+        if not writer:
+            setup_logging(None, console_level=logging.WARNING)
+    run = RunConfig.from_file(args.config, runid=runid, overrides=parse_overrides(args),
+                              make_dirs=writer)
     logger = get_logger("train")
     logger.info(f"run dir: {run.save_dir}")
-    trainer = Trainer(run, seed=args.seed, logger=logger, device=args.device)
+    trainer = Trainer(run, seed=args.seed, logger=logger, device=device)
     start = trainer.resume(args.resume, reset=args.reset) if args.resume else 0
     return trainer.train(start_iteration=start)
 

@@ -10,8 +10,13 @@ that both packages yield the same batches from the same seed:
   ``b`` of epoch ``e`` draws its clip seeds from ``default_rng((seed, e, b))``;
 * sharding partitions the clip index space by ``(shard_index, shard_count)``
   with wrap-around padding to equal shards (``DistributedSampler``'s rule);
+* ``rows=(r, n)`` keeps rows ``[r*b/n, (r+1)*b/n)`` of every batch and
+  reads only their clips, the clip seeds still drawn for the whole batch,
+  so the ``n`` row sets of one batch, concatenated, are the batch a
+  ``rows=(0, 1)`` loader yields (a data-parallel rank's share of its node's
+  batch, ``parallel/mesh.py``);
 * ``pad_last`` wrap-pads the final short batch and marks the padding in a
-  ``clip_mask``; ``compact`` ships ``{inp,gt}_{xy,p}`` (int16 / int8, no
+  ``clip_mask``, which follows the rows; ``compact`` ships ``{inp,gt}_{xy,p}`` (int16 / int8, no
   timestamps) instead of ``{inp,gt}_events``;
 * a worker's exception reaches the consumer and is raised there (never a
   short epoch), and the workers are stopped and joined at exit.
@@ -24,7 +29,7 @@ import copy
 import logging
 import queue
 import threading
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -62,6 +67,7 @@ class SequenceLoader:
         seed: int = 0,
         shard_index: int = 0,
         shard_count: int = 1,
+        rows: Tuple[int, int] = (0, 1),
     ):
         self.config = config
         self.batch_size = batch_size
@@ -74,6 +80,9 @@ class SequenceLoader:
         self.seed = seed
         self.shard_index = shard_index
         self.shard_count = shard_count
+        self.row_index, self.row_count = rows
+        if not 0 <= self.row_index < self.row_count:
+            raise ValueError(f"rows={rows}: need 0 <= index < count")
         self.epoch = 0
 
         self.datasets = concatenate_datasets(paths, config)
@@ -125,6 +134,10 @@ class SequenceLoader:
             reps = -(-self.batch_size // len(shard)) + 1
             last = (last + list(shard) * reps)[: self.batch_size]
             batches[-1] = [(d, i, k < real) for k, (d, i) in enumerate(last)]
+        short = sorted({len(b) for b in batches if len(b) % self.row_count})
+        if short:
+            raise ValueError(f"batches of {short} clips do not split over {self.row_count} "
+                             "rows: set drop_last or pad_last")
         return batches
 
     @staticmethod
@@ -137,9 +150,13 @@ class SequenceLoader:
 
     def _load_batch(self, datasets, batch, rng) -> Dict[str, np.ndarray]:
         clips, mask = [], []
-        for entry in batch:
+        m = len(batch) // self.row_count
+        mine = range(self.row_index * m, (self.row_index + 1) * m)
+        for k, entry in enumerate(batch):
             d, i, real = entry if len(entry) == 3 else (*entry, True)
-            clip_seed = int(rng.integers(0, 2**31))
+            clip_seed = int(rng.integers(0, 2**31))  # drawn for every row: the seeds stay put
+            if k not in mine:
+                continue
             clips.append(datasets[d].get_clip(i, seed=clip_seed))
             mask.append(1.0 if real else 0.0)
         out = self._collate(clips)

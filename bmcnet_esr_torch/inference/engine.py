@@ -28,14 +28,22 @@ metrics come back to the host.  Behaviour kept from the JAX engine:
   window pairs of every file or batched group (``engine.py:260-283``),
   never overwriting scales the caller installed.
 
+``mesh=`` (``parallel.make_mesh``) shards batched rollouts by stream, the
+counterpart of ``engine.py:150-258``: the B streams split into ``mesh.size``
+contiguous groups, each rolled out by its own replica of the model on its
+mesh device and its own CUDA stream, every group's chunk enqueued before
+any is waited on; int8 scales stay per lane, so a shard's lanes keep their
+solo scales.  One process: the streams need no collective.
+
 ``load_model_for_inference`` reads the port's training checkpoints too,
 their parameters or, with ``use_ema``, their EMA.  Not ported: Orbax
-checkpoints (they need JAX; ROADMAP.md Queue 1 item 7) and ``mesh=``
-sharding (item 8).
+checkpoints (they need JAX; ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import logging
 import os
@@ -130,6 +138,30 @@ class _ChunkOut:
     images: Optional[Tuple[np.ndarray, ...]] = None  # lr, pred, bicubic, gt [S, B, ...]
 
 
+@dataclasses.dataclass
+class _Shard:
+    """A model replica on one device with its streams: the copy stream of
+    its uploads and the stream it computes on (``None``: the caller's)."""
+
+    model: torch.nn.Module
+    device: torch.device
+    stream: Optional[torch.cuda.Stream] = None
+    copy_stream: Optional[torch.cuda.Stream] = None
+    # True once the engine installed this replica's static int8 scales
+    auto_quant: bool = False
+
+    @classmethod
+    def on_device(cls, model, device: torch.device, own_stream: bool) -> "_Shard":
+        if device.type != "cuda":
+            return cls(model, device)
+        return cls(model, device, torch.cuda.Stream(device) if own_stream else None,
+                   torch.cuda.Stream(device))
+
+    def on(self):
+        """Make this shard's stream the current one."""
+        return contextlib.nullcontext() if self.stream is None else torch.cuda.stream(self.stream)
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -141,10 +173,18 @@ class InferenceEngine:
         vis_color_scheme: str = "blue_red",
         extra_metrics: Sequence[str] = (),
         h2d_overlap: bool = True,
+        mesh=None,
         device="cuda",
     ):
         """``h2d_overlap``: enqueue the NEXT chunk's upload while the current
-        chunk computes (bit-identical to the serial path)."""
+        chunk computes (bit-identical to the serial path).
+
+        ``mesh`` (``parallel.make_mesh``): batched rollouts
+        (:meth:`infer_windows_batch`, :meth:`infer_file_batch`) split their
+        streams into ``mesh.size`` contiguous groups, one per mesh device,
+        each rolled out by its own replica of the model on its own CUDA
+        stream; a group of streams that the mesh does not divide runs
+        unsharded, with one warning (``engine.py:212-230``)."""
         self.device = resolve_device(device)
         strict_fp32()
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
@@ -174,45 +214,81 @@ class InferenceEngine:
         self.h2d_overlap = bool(h2d_overlap)
         self._overlap_skips = 0
         self._macs: Dict[Tuple, float] = {}  # MACs per window, by (batch, input resolution)
-        # int8: True once this engine installed the static scales, which it
-        # then derives anew for every file / group, so each lane's scale
-        # comes from its own stream; scales the caller installed are kept
-        self._auto_quant = False
-        self._copy_stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        )
+        # int8: a shard's ``auto_quant`` turns True once this engine installed
+        # its static scales, which it then derives anew for every file /
+        # group, so each lane's scale comes from its own stream; scales the
+        # caller installed are kept
+        self._solo = _Shard.on_device(self.model, self.device, own_stream=False)
+        self.mesh = mesh
+        self._replicas: List[_Shard] = []
+        self._warned_unsharded = False
+        if mesh is not None:
+            for d in mesh.devices:
+                d = resolve_device(d)
+                if d.type != self.device.type:
+                    raise ValueError(f"mesh device {d} is not a {self.device.type} device")
+                replica = copy.deepcopy(self.model).to(d, memory_format=torch.channels_last)
+                self._replicas.append(_Shard.on_device(replica.eval(), d, own_stream=True))
         self.params_m = count_params(self.model) / 1e6
+
+    def _split(self, batch: int) -> List[Tuple[_Shard, slice]]:
+        """The shards of a rollout of ``batch`` streams and their lanes."""
+        if not self._replicas or batch <= 1:
+            return [(self._solo, slice(0, batch))]
+        n = len(self._replicas)
+        if batch % n:
+            if not self._warned_unsharded:
+                self._warned_unsharded = True
+                logging.getLogger(__name__).warning(
+                    "batch of %d streams does not divide the %d-device mesh; running this "
+                    "group unsharded (results are identical, just single-device)", batch, n)
+            return [(self._solo, slice(0, batch))]
+        g = batch // n
+        return [(sh, slice(i * g, (i + 1) * g)) for i, sh in enumerate(self._replicas)]
 
     # -- host -> device ------------------------------------------------------
 
-    def _load(self, load_chunk: ChunkLoader, pos: int, steps: int):
-        """Loader-thread body: read a chunk and pin it for the upload."""
+    def _load(self, load_chunk: ChunkLoader, pos: int, steps: int, lanes: Sequence[slice]):
+        """Loader-thread body: read a chunk, cut each shard's lanes and pin
+        them for the upload."""
         inp_c, gt_c = load_chunk(pos, steps)
         if any(len(a) != steps + 1 for a in inp_c) or any(len(a) != steps for a in gt_c):
             raise ValueError(
                 f"load_chunk({pos}, {steps}) must return {steps + 1} input and {steps} GT "
                 f"windows, got {[len(a) for a in inp_c]} and {[len(a) for a in gt_c]}"
             )
-        arrays = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (*inp_c, *gt_c))
-        if self.device.type == "cuda":
-            arrays = tuple(a.pin_memory() for a in arrays)
-        return arrays
+        out = []
+        for sl in lanes:
+            arrays = tuple(torch.from_numpy(np.ascontiguousarray(a[:, sl]))
+                           for a in (*inp_c, *gt_c))
+            if self.device.type == "cuda":
+                arrays = tuple(a.pin_memory() for a in arrays)
+            out.append(arrays)
+        return out
 
-    def _upload(self, arrays):
-        """Enqueue the upload; returns ``(device tensors, ready event)``."""
-        if self.device.type != "cuda":
-            return arrays, None
-        with torch.cuda.stream(self._copy_stream):
-            dev = tuple(a.to(self.device, non_blocking=True) for a in arrays)
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return dev, ready
+    @staticmethod
+    def _upload(shards, arrays):
+        """Enqueue each shard's upload on its copy stream; returns
+        ``(device tensors, ready event)`` per shard."""
+        out = []
+        for (sh, _), arr in zip(shards, arrays):
+            if sh.copy_stream is None:
+                out.append((arr, None))
+                continue
+            with torch.cuda.stream(sh.copy_stream):
+                dev = tuple(a.to(sh.device, non_blocking=True) for a in arr)
+                ready = torch.cuda.Event()
+                ready.record(sh.copy_stream)
+            out.append((dev, ready))
+        return out
 
-    def _adopt(self, uploaded):
-        """Make an upload safe to use on the compute stream."""
+    @staticmethod
+    def _adopt(shard: _Shard, uploaded):
+        """Make an upload safe to use on the shard's compute stream."""
         dev, ready = uploaded
         if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
+            with shard.on():
+                stream = torch.cuda.current_stream(shard.device)
             stream.wait_event(ready)
             for t in dev:
                 t.record_stream(stream)
@@ -220,8 +296,8 @@ class InferenceEngine:
 
     # -- one chunk -----------------------------------------------------------
 
-    def _macs_per_window(self, pair: torch.Tensor, carry) -> float:
-        model = self.model
+    @staticmethod
+    def _macs_per_window(model, pair: torch.Tensor, carry) -> float:
         if model.quant:
             # the int8 kernels launch through ctypes, out of the flop
             # counter's sight: count the same network in float, shapes only
@@ -233,17 +309,18 @@ class InferenceEngine:
             model(pair, *carry)
         return fc.get_total_flops() / 2.0 / pair.shape[0]
 
-    def _maybe_calibrate(self, dev, inp_res, batch: int) -> None:
+    @staticmethod
+    def _maybe_calibrate(shard: _Shard, dev, inp_res, batch: int) -> None:
         """int8 static scales from (up to) 16 recurrent steps over the first
         chunk's windows, per lane (``models/quant.calibrate_act_scales``)."""
-        if not self.model.quant or (act_scales(self.model) and not self._auto_quant):
+        model = shard.model
+        if not model.quant or (act_scales(model) and not shard.auto_quant):
             return
         pairs = _calib_pairs(dev[0], dev[1], inp_res)
-        calibrate_act_scales(self.model, pairs,
-                             self.model.init_state(batch, *inp_res, device=self.device))
-        self._auto_quant = True
+        calibrate_act_scales(model, pairs, model.init_state(batch, *inp_res, device=shard.device))
+        shard.auto_quant = True
 
-    def _run_chunk(self, carry, dev, inp_res, gt_res, want_images: bool):
+    def _run_chunk(self, model, carry, dev, inp_res, gt_res, want_images: bool):
         """Enqueue one chunk; returns the new carry and device results."""
         inp_xy, inp_p, gt_xy, gt_p = dev
         frames = batch_counts_from_compact(inp_xy, inp_p, inp_res)  # [S+1, B, H, W, 2]
@@ -251,7 +328,7 @@ class InferenceEngine:
         pairs = torch.stack([frames[:-1], frames[1:]], 2)          # [S, B, 2, H, W, 2]
         esr, bicm, extras, preds, bics = [], [], [], [], []
         for pair, gt in zip(pairs, gts):
-            carry = self.model(pair, *carry)
+            carry = model(pair, *carry)
             pred = carry[-1]
             pred_fit = resize_bicubic(pred, gt_res) if pred.shape[1:3] != gt.shape[1:3] else pred
             bic = resize_bicubic(pair[:, 1], gt_res)
@@ -273,40 +350,70 @@ class InferenceEngine:
             out.append((frames[1:], torch.stack(preds), torch.stack(bics), gts))
         return carry, out
 
+    @staticmethod
+    def _to_host(shards, parts) -> List[np.ndarray]:
+        """Each shard's device tensors as float32 numpy arrays (copied on its
+        own stream), joined along the lanes."""
+        host = []
+        for (sh, _), ts in zip(shards, parts):
+            with sh.on():
+                host.append([t.float().cpu().numpy() for t in ts])
+        return [np.concatenate(cols, 1) for cols in zip(*host)]
+
     # -- the chunked rollout ---------------------------------------------------
 
     def _rollout(self, chunk_bounds, load_chunk: ChunkLoader, batch: int, inp_res, gt_res,
                  want_images: bool, consume: Callable[[int, int, _ChunkOut], None]) -> float:
-        """Double-buffered rollout: the loader thread reads chunk N+1 while
-        chunk N computes; ``consume(pos, steps, out)`` gets each chunk's host
-        results in order.  Returns the MACs per window of one stream."""
+        """Double-buffered rollout of ``batch`` streams: the loader thread
+        reads chunk N+1 while chunk N computes; each shard (one, unless a
+        mesh splits the streams) enqueues its lanes' chunk before any waits
+        for its results.  ``consume(pos, steps, out)`` gets each chunk's host
+        results in order, lanes in stream order.  Returns the MACs per
+        window of one stream."""
         self._overlap_skips = 0
+        shards = self._split(batch)
+        lanes = [sl for _, sl in shards]
         pool = ThreadPoolExecutor(max_workers=1)
         try:
             with torch.inference_mode():
-                carry = self.model.init_state(batch, *inp_res, device=self.device)
-                pending = pool.submit(self._load, load_chunk, *chunk_bounds[0])
+                carries = []
+                for sh, sl in shards:
+                    with sh.on():
+                        carries.append(sh.model.init_state(sl.stop - sl.start, *inp_res,
+                                                           device=sh.device))
+                pending = pool.submit(self._load, load_chunk, *chunk_bounds[0], lanes)
                 next_up = None
                 for ci, (pos, steps) in enumerate(chunk_bounds):
                     if next_up is None:
                         arrays = pending.result()
                         if ci + 1 < len(chunk_bounds):
-                            pending = pool.submit(self._load, load_chunk, *chunk_bounds[ci + 1])
-                        next_up = self._upload(arrays)
-                    dev = self._adopt(next_up)
+                            pending = pool.submit(self._load, load_chunk,
+                                                  *chunk_bounds[ci + 1], lanes)
+                        next_up = self._upload(shards, arrays)
+                    devs = [self._adopt(sh, up) for (sh, _), up in zip(shards, next_up)]
                     next_up = None
-                    if ci == 0:
-                        self._maybe_calibrate(dev, inp_res, batch)
-                    if (batch, inp_res) not in self._macs:
-                        # outside the timed region: the flop count (one extra
-                        # forward per shape, outputs dropped) doubles as a warm-up
-                        pair0 = torch.zeros((batch, 2, *inp_res, 2), device=self.device)
-                        self._macs[batch, inp_res] = self._macs_per_window(pair0, carry)
-                        if self.device.type == "cuda":
-                            torch.cuda.synchronize(self.device)
+                    for i, ((sh, sl), dev) in enumerate(zip(shards, devs)):
+                        n = sl.stop - sl.start
+                        with sh.on():
+                            if ci == 0:
+                                self._maybe_calibrate(sh, dev, inp_res, n)
+                            if (n, inp_res) not in self._macs:
+                                # outside the timed region: the flop count (one
+                                # extra forward per shape, outputs dropped)
+                                # doubles as a warm-up
+                                pair0 = torch.zeros((n, 2, *inp_res, 2), device=sh.device)
+                                self._macs[n, inp_res] = self._macs_per_window(
+                                    sh.model, pair0, carries[i])
+                                if sh.device.type == "cuda":
+                                    torch.cuda.synchronize(sh.device)
 
                     t0 = time.perf_counter()
-                    carry, res = self._run_chunk(carry, dev, inp_res, gt_res, want_images)
+                    results = []
+                    for i, ((sh, _), dev) in enumerate(zip(shards, devs)):
+                        with sh.on():
+                            carries[i], res = self._run_chunk(sh.model, carries[i], dev,
+                                                              inp_res, gt_res, want_images)
+                        results.append(res)
                     # upload the NEXT chunk while this one computes, but only
                     # when its host read has already finished: a read still
                     # running would bill host IO to this chunk's time
@@ -315,22 +422,24 @@ class InferenceEngine:
                             arrays = pending.result()
                             if ci + 2 < len(chunk_bounds):
                                 pending = pool.submit(
-                                    self._load, load_chunk, *chunk_bounds[ci + 2]
+                                    self._load, load_chunk, *chunk_bounds[ci + 2], lanes
                                 )
-                            next_up = self._upload(arrays)
+                            next_up = self._upload(shards, arrays)
                         else:
                             self._overlap_skips += 1
-                    esr = res[0].cpu().numpy()  # synchronizes the chunk
+                    # the first copy of each shard synchronizes its chunk
+                    esr = self._to_host(shards, [res[:1] for res in results])[0]
                     dt_ms = (time.perf_counter() - t0) * 1000.0 / steps
-                    out = _ChunkOut(esr, res[1].cpu().numpy(), res[2].cpu().numpy(), dt_ms)
+                    out = _ChunkOut(esr, *self._to_host(shards, [res[1:3] for res in results]),
+                                    dt_ms)
                     if want_images:
-                        out.images = tuple(t.float().cpu().numpy() for t in res[3])
+                        out.images = tuple(self._to_host(shards, [res[3] for res in results]))
                     consume(pos, steps, out)
         finally:
             # an in-flight read must finish or be cancelled before the caller
             # closes the dataset under it
             pool.shutdown(wait=True, cancel_futures=True)
-        return self._macs[batch, inp_res]
+        return self._macs[lanes[0].stop - lanes[0].start, inp_res]
 
     def _new_tracker(self) -> MetricTracker:
         track = MetricTracker(
@@ -449,12 +558,56 @@ class InferenceEngine:
 
     # -- batched multi-stream rollout -----------------------------------------
 
-    def infer_file_batch(self, data_paths: List[str]) -> List[Dict]:
-        """Roll out several same-resolution files as one batched stream set.
-        Each stream's numbers equal its own :meth:`infer_file` run up to the
+    def infer_windows_batch(
+        self,
+        load_chunk: ChunkLoader,
+        n_windows: Sequence[int],
+        inp_res: Tuple[int, int],
+        gt_res: Tuple[int, int],
+        return_per_window: bool = False,
+    ) -> List[Dict]:
+        """Roll ``len(n_windows)`` streams out of ``load_chunk`` as one batch
+        (lane ``j`` has ``n_windows[j]`` window pairs; windows past a
+        stream's end are zero-event padding whose metrics are masked).  Each
+        stream's numbers equal its own :meth:`infer_windows` run up to the
         floating-point reassociation that batch-size-dependent convolution
-        algorithms bring; shorter files pad with zero-event windows whose
-        metrics are masked.  No PNG streams in batched mode."""
+        algorithms bring; with a mesh, the streams split over its devices.
+        :meth:`infer_file_batch` feeds it from h5 files;
+        ``return_per_window`` as in :meth:`infer_windows`."""
+        n_windows = list(n_windows)
+        if not n_windows or min(n_windows) < 1:
+            raise ValueError("every stream needs at least one (w, w+1) pair")
+        tracks = [self._new_tracker() for _ in n_windows]
+        per_window = [{"esr_mse": [], "bicubic_mse": []} for _ in n_windows]
+
+        def consume(pos: int, steps: int, out: _ChunkOut) -> None:
+            for s in range(steps):
+                for j, t in enumerate(tracks):
+                    if pos + s >= n_windows[j]:
+                        continue  # padded tail of a shorter stream
+                    per_window[j]["esr_mse"].append(float(out.esr[s, j]))
+                    per_window[j]["bicubic_mse"].append(float(out.bicm[s, j]))
+                    t.update("esr_mse", float(out.esr[s, j]))
+                    t.update("bicubic_mse", float(out.bicm[s, j]))
+                    t.update("time", out.dt_ms)
+                    for mi, mname in enumerate(self.extra_metrics):
+                        t.update(f"esr_{mname}", float(out.extras[s, j, mi]))
+
+        macs = self._rollout(
+            _chunk_bounds(max(n_windows), self.chunk_size), load_chunk, len(n_windows),
+            tuple(inp_res), tuple(gt_res), False, consume,
+        )
+        results = []
+        for t, pw in zip(tracks, per_window):
+            t.update("macs", macs / 1e6)
+            results.append(self._finish(t.result()))
+            if return_per_window:
+                results[-1]["per_window"] = {k: np.asarray(v) for k, v in pw.items()}
+        return results
+
+    def infer_file_batch(self, data_paths: List[str]) -> List[Dict]:
+        """Roll out several same-resolution files as one batched stream set
+        (:meth:`infer_windows_batch`).  No PNG streams in batched mode."""
         dss = [EventH5Dataset(p, self.config) for p in data_paths]
         try:
             inp_res = tuple(dss[0].layout.inp_resolution)
@@ -491,31 +644,10 @@ class InferenceEngine:
                                 gt[s - 1, j] = pad_to(item["gt_events"], gt_pad)
                 return compact_events(inp), compact_events(gt)
 
-            tracks = [self._new_tracker() for _ in dss]
-
-            def consume(pos: int, steps: int, out: _ChunkOut) -> None:
-                for s in range(steps):
-                    for j, t in enumerate(tracks):
-                        if pos + s >= n_windows[j]:
-                            continue  # padded tail of a shorter file
-                        t.update("esr_mse", float(out.esr[s, j]))
-                        t.update("bicubic_mse", float(out.bicm[s, j]))
-                        t.update("time", out.dt_ms)
-                        for mi, mname in enumerate(self.extra_metrics):
-                            t.update(f"esr_{mname}", float(out.extras[s, j, mi]))
-
-            macs = self._rollout(
-                _chunk_bounds(max(n_windows), self.chunk_size), load_chunk, b,
-                inp_res, gt_res, False, consume,
-            )
+            return self.infer_windows_batch(load_chunk, n_windows, inp_res, gt_res)
         finally:
             for ds in dss:
                 ds.close()
-        results = []
-        for t in tracks:
-            t.update("macs", macs / 1e6)
-            results.append(self._finish(t.result()))
-        return results
 
     # -- datalist entry point --------------------------------------------------
 

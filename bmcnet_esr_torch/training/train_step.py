@@ -255,33 +255,44 @@ def make_train_step(
         return torch.stack(totals).mean(), torch.stack(mses).mean()
 
     def step(state: TrainState, batch: Dict[str, Tensor]):
-        model, opt = state.model, state.optimizer
-        model.train()
-        opt.zero_grad(set_to_none=True)
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            total, mse = backward(model, batch)
-        params = list(model.parameters())
-        for p in params:  # an unused parameter has a zero gradient, as under jax.grad
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        gnorm = global_norm(p.grad for p in params)
-        metrics: Dict[str, Any] = {"train_loss": total, "train_mse_loss": mse, "grad_norm": gnorm}
-        apply = True
-        if skip_nonfinite:
-            apply = bool(torch.isfinite(total) & torch.isfinite(gnorm))
-            metrics["train_skipped"] = int(not apply)
-        if apply:
-            lr = state.schedule(state.updates)  # the count before this update
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-            state.updates += 1
-        if ema_decay:
-            ema_update(state, ema_decay)
-        state.step += 1
-        return state, metrics
+            total, mse = backward(state.model, batch)
+        fill_missing_grads(state.model)
+        return state, apply_update(state, total, mse, skip_nonfinite, ema_decay)
 
     return step
+
+
+def fill_missing_grads(model: nn.Module) -> None:
+    """An unused parameter gets a zero gradient, as under ``jax.grad``."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def apply_update(state: TrainState, total: Tensor, mse: Tensor, skip_nonfinite: bool,
+                 ema_decay: float) -> Dict[str, Any]:
+    """The optimizer update from the gradients in ``.grad``: the scheduled
+    learning rate, the non-finite guard on ``total`` and the gradient norm,
+    the EMA and the counts.  Returns the step's metrics."""
+    gnorm = global_norm(p.grad for p in state.model.parameters())
+    metrics: Dict[str, Any] = {"train_loss": total, "train_mse_loss": mse, "grad_norm": gnorm}
+    apply = True
+    if skip_nonfinite:
+        apply = bool(torch.isfinite(total) & torch.isfinite(gnorm))
+        metrics["train_skipped"] = int(not apply)
+    if apply:
+        lr = state.schedule(state.updates)  # the count before this update
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.updates += 1
+    if ema_decay:
+        ema_update(state, ema_decay)
+    state.step += 1
+    return metrics
 
 
 def make_eval_step(
@@ -298,24 +309,38 @@ def make_eval_step(
     still includes the padded clips (as in the JAX package)."""
     terms = _normalized(extra_losses)
 
-    @torch.no_grad()
     def step(model: nn.Module, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
-        model.eval()
-        inp_frames = counts_from_batch(batch, "inp", tuple(inp_resolution))
-        gt_frames = counts_from_batch(batch, "gt", tuple(gt_resolution))
-        inp_events, inp_lens = _events_for_terms(batch, terms)
-        mses, totals = _rollout_losses(
-            model, inp_frames, gt_frames, seqn, gt_resolution, False, terms,
-            inp_events=inp_events, inp_lens=inp_lens,
-        )  # [S, B]
-        w = batch.get("clip_mask")
-        if w is None:
-            w = torch.ones(inp_frames.shape[0], device=inp_frames.device)
-        wsum = torch.clamp(w.sum(), min=1.0)
-        return {
-            "valid_loss": ((totals * w).sum(-1) / wsum).sum(),
-            "valid_mse_loss": (mses[-1] * w).sum(-1) / wsum,
-            "valid_clips": w.sum(),
-        }
+        return eval_metrics(eval_sums(model, batch, inp_resolution, gt_resolution, seqn, terms))
 
     return step
+
+
+@torch.no_grad()
+def eval_sums(model: nn.Module, batch: Dict[str, Tensor], inp_resolution, gt_resolution,
+              seqn: int, terms: Tuple) -> Tensor:
+    """``[S + 2]``: per step the ``clip_mask``-weighted sum over the clips of
+    the total loss, then that of the last step's MSE, then the weights' sum.
+    Sums over several batches' clips add (the data-parallel eval step)."""
+    model.eval()
+    inp_frames = counts_from_batch(batch, "inp", tuple(inp_resolution))
+    gt_frames = counts_from_batch(batch, "gt", tuple(gt_resolution))
+    inp_events, inp_lens = _events_for_terms(batch, terms)
+    mses, totals = _rollout_losses(
+        model, inp_frames, gt_frames, seqn, gt_resolution, False, terms,
+        inp_events=inp_events, inp_lens=inp_lens,
+    )  # [S, B]
+    w = batch.get("clip_mask")
+    if w is None:
+        w = torch.ones(inp_frames.shape[0], device=inp_frames.device)
+    return torch.cat([(totals * w).sum(-1), (mses[-1] * w).sum(-1, keepdim=True),
+                      w.sum().reshape(1)])
+
+
+def eval_metrics(sums: Tensor) -> Dict[str, Tensor]:
+    """The validation metrics of :func:`eval_sums`: weighted means."""
+    wsum = torch.clamp(sums[-1], min=1.0)
+    return {
+        "valid_loss": (sums[:-2] / wsum).sum(),
+        "valid_mse_loss": sums[-2] / wsum,
+        "valid_clips": sums[-1],
+    }

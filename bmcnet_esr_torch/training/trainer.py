@@ -1,4 +1,4 @@
-"""Iteration-based trainer on one device: the engine behind ``cli/train.py``.
+"""Iteration-based trainer: the engine behind ``cli/train.py``.
 
 Counterpart of ``bmcnet_esr_tpu/training/trainer.py`` (the reference
 ``Trainer``, ``train.py:86-617``, iteration mode only):
@@ -18,9 +18,22 @@ Counterpart of ``bmcnet_esr_tpu/training/trainer.py`` (the reference
   loop ends; a second SIGTERM ends the process at once.
 
 Parameters are initialized from ``torch.Generator().manual_seed(seed)``.
-Only one device: ``model_parallel > 1``, ``dcn_slices > 1``, and
-``data_parallel: true`` with more than one visible CUDA device raise
-(ROADMAP.md Queue 1 item 8) rather than quietly train on one.
+
+Data parallelism (``bmcnet_esr_tpu/training/trainer.py:255-411``): inside a
+process group of more than one rank (``torchrun ... cli.train
+--distributed``) with ``data_parallel: true``, the steps are
+``parallel.make_parallel_train_step`` / ``make_parallel_eval_step``.
+``batch_size`` is the node's batch: the loaders shard the clips over the
+nodes (``shard_index`` = the node) and split each batch over the node's
+ranks (``rows``), so the global batch is the JAX multi-host mesh's, clip
+for clip.  ``dcn_slices: N`` lays the ranks on a ``(dcn_data, data)`` mesh.
+Rank 0 alone writes checkpoints, the log file and tensorboard, with a
+barrier after each save; every rank resumes from the shared path; a
+SIGTERM stop is agreed by all ranks at an iteration boundary.  Two
+divergences from the JAX trainer: a node batch that its ranks do not divide
+raises (torchrun has fixed the rank count; JAX shrinks its data axis), and
+one process that sees several GPUs outside a group raises.
+``model_parallel > 1`` raises (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -34,9 +47,19 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bmcnet_esr_torch.data import DatasetConfig, SequenceLoader, load_datalist
 from bmcnet_esr_torch.models import BMCNet, BMCNetPlain, count_params
+from bmcnet_esr_torch.parallel.mesh import (
+    PARALLEL_TODO,
+    any_rank,
+    host_group,
+    make_process_mesh,
+    process_layout,
+    replicate_tree,
+    shard_batch,
+)
 from bmcnet_esr_torch.training import checkpoint as ckpt_lib
 from bmcnet_esr_torch.training.config import RunConfig
 from bmcnet_esr_torch.training.losses import (
@@ -59,9 +82,6 @@ from bmcnet_esr_torch.utils import (
     strict_fp32,
 )
 
-PARALLEL_TODO = "multi-device training is not ported yet (ROADMAP.md Queue 1 item 8)"
-
-
 def build_model(config: Dict[str, Any], scale: int, generator: Optional[torch.Generator] = None):
     """Model from the recipe's ``model`` block (defaults ``n_c=128``,
     ``n_b=5``, ``variant: full``).  ``quant: qat`` trains on the int8 grid
@@ -79,8 +99,14 @@ def build_model(config: Dict[str, Any], scale: int, generator: Optional[torch.Ge
                dtype=dtype, quant=quant, generator=generator)
 
 
-def build_loader(dl_cfg: Dict[str, Any], *, seed: int = 0,
-                 pad_last: bool = False) -> SequenceLoader:
+def build_loader(dl_cfg: Dict[str, Any], *, seed: int = 0, pad_last: bool = False,
+                 layout=None) -> SequenceLoader:
+    """``layout`` (a ``parallel.ProcessLayout``) shards the clips over the
+    nodes and each batch over the node's ranks."""
+    shard = {}
+    if layout is not None:
+        shard = dict(shard_index=layout.node, shard_count=layout.n_nodes,
+                     rows=(layout.local_rank, layout.local_world_size))
     return SequenceLoader(
         load_datalist(dl_cfg["path_to_datalist_txt"]),
         DatasetConfig.from_dict(dl_cfg["dataset"]),
@@ -93,6 +119,7 @@ def build_loader(dl_cfg: Dict[str, Any], *, seed: int = 0,
         compact=dl_cfg.get("compact_transfer", True),
         num_workers=dl_cfg.get("num_workers", 2),
         seed=seed,
+        **shard,
     )
 
 
@@ -139,7 +166,11 @@ class Trainer:
         self.ema_decay = float(tcfg.get("ema", 0.0))
         if not 0.0 <= self.ema_decay < 1.0:
             raise ValueError(f"trainer.ema must be in [0, 1), got {self.ema_decay}")
-        self._check_single_device(tcfg)
+        self.layout = self._parallel_layout(tcfg)
+        self.is_writer = self.layout is None or self.layout.rank == 0
+        if not self.is_writer:  # rank 0 writes the log; the others only warn
+            self.logger = logging.getLogger(f"{self.logger.name}.rank{self.layout.rank}")
+            self.logger.setLevel(logging.WARNING)
 
         monitor = tcfg.get("monitor", "off")
         if monitor == "off":
@@ -153,10 +184,14 @@ class Trainer:
         self.not_improved_count = 0
 
         self.train_loader = (train_loader if train_loader is not None
-                             else build_loader(cfg["train_dataloader"], seed=seed))
+                             else build_loader(cfg["train_dataloader"], seed=seed,
+                                               layout=self.layout))
         self.valid_loader = valid_loader
         if valid_loader is None and "valid_dataloader" in cfg:
-            self.valid_loader = build_loader(cfg["valid_dataloader"], seed=seed, pad_last=True)
+            self.valid_loader = build_loader(cfg["valid_dataloader"], seed=seed, pad_last=True,
+                                             layout=self.layout)
+        for ld in (self.train_loader, self.valid_loader):
+            self._rank_rows(ld)  # a node batch that does not split raises here
 
         scale = cfg["train_dataloader"]["dataset"]["scale"]
         self.scale = scale
@@ -206,36 +241,117 @@ class Trainer:
         self.state = init_train_state(model, optimizer, schedule, ema=self.ema_decay > 0)
         self.logger.info(f"model params: {count_params(model)} on {self.device}")
 
-        self.train_step = make_train_step(
-            self.inp_resolution, self.gt_resolution, self.seqn, use_remat=self.use_remat,
-            extra_losses=self.extra_losses, grad_accum=self.grad_accum,
-            skip_nonfinite=self.skip_nonfinite, ema_decay=self.ema_decay,
-        )
-        self.eval_step = make_eval_step(
-            self.inp_resolution, self.gt_resolution, self.seqn, extra_losses=self.extra_losses
-        )
+        self.mesh = self._host = None
+        if self.layout is None:
+            self.train_step = make_train_step(
+                self.inp_resolution, self.gt_resolution, self.seqn, use_remat=self.use_remat,
+                extra_losses=self.extra_losses, grad_accum=self.grad_accum,
+                skip_nonfinite=self.skip_nonfinite, ema_decay=self.ema_decay,
+            )
+            self.eval_step = make_eval_step(
+                self.inp_resolution, self.gt_resolution, self.seqn,
+                extra_losses=self.extra_losses,
+            )
+        else:
+            # imported here: parallel.step imports this package's train_step
+            from bmcnet_esr_torch.parallel.step import (
+                make_parallel_eval_step,
+                make_parallel_train_step,
+            )
+
+            if self.grad_accum > 1:
+                self.logger.warning(
+                    "grad_accum > 1 is a single-device memory lever; the mesh already "
+                    "splits the batch across ranks — ignoring it")
+                self.grad_accum = 1
+            self.mesh = make_process_mesh(int(tcfg.get("dcn_slices", 1)))
+            self._host = host_group()
+            replicate_tree(self.state)
+            self.train_step = make_parallel_train_step(
+                self.inp_resolution, self.gt_resolution, self.mesh, self.seqn,
+                use_remat=self.use_remat, extra_losses=self.extra_losses,
+                skip_nonfinite=self.skip_nonfinite, ema_decay=self.ema_decay,
+            )
+            self.eval_step = make_parallel_eval_step(
+                self.inp_resolution, self.gt_resolution, self.mesh, self.seqn,
+                extra_losses=self.extra_losses,
+            )
+            self.logger.info(f"data parallel over {self.mesh.size()} ranks: "
+                             f"{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}")
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
-        self.writer = TensorboardWriter(run.log_dir, tcfg.get("tensorboard", True), self.logger)
+        self.writer = TensorboardWriter(run.log_dir,
+                                        tcfg.get("tensorboard", True) and self.is_writer,
+                                        self.logger)
         self.train_metrics = MetricTracker(["train_mse_loss", "train_loss"])
         self.valid_metrics = MetricTracker(["valid_mse_loss", "valid_loss"])
 
-    def _check_single_device(self, tcfg: Dict[str, Any]) -> None:
-        if int(tcfg.get("model_parallel", 1)) > 1:
-            raise NotImplementedError(f"trainer.model_parallel > 1: {PARALLEL_TODO}")
-        if int(tcfg.get("dcn_slices", 1)) > 1:
-            raise NotImplementedError(f"trainer.dcn_slices > 1: {PARALLEL_TODO}")
-        if (tcfg.get("data_parallel", True) and self.device.type == "cuda"
+    def _parallel_layout(self, tcfg: Dict[str, Any]):
+        """This rank's ``ProcessLayout`` when the run is data parallel, else
+        ``None``; refuses what it cannot run rather than quietly train on one
+        device (``bmcnet_esr_tpu/training/trainer.py:255-315``)."""
+        n_slices = int(tcfg.get("dcn_slices", 1))
+        n_model = int(tcfg.get("model_parallel", 1))
+        if n_slices > 1 and n_model > 1:
+            raise ValueError("dcn_slices and model_parallel cannot combine yet")
+        if n_model > 1:
+            raise NotImplementedError(f"trainer.model_parallel > 1: tensor parallelism "
+                                      f"{PARALLEL_TODO}")
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        use_dp = bool(tcfg.get("data_parallel", True)) and world > 1
+        if n_slices > 1 and not use_dp:
+            raise ValueError(
+                "dcn_slices > 1 requires data parallelism (data_parallel: true inside a "
+                "process group of more than one rank): the (dcn_data, data) mesh splits "
+                "the batch over both axes")
+        if world > 1 and not use_dp:
+            raise ValueError(f"data_parallel: false inside a process group of {world} ranks: "
+                             "every rank would train alone; launch one process")
+        if (world == 1 and tcfg.get("data_parallel", True) and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                f"data_parallel with {torch.cuda.device_count()} visible devices: "
-                f"{PARALLEL_TODO}; set trainer.data_parallel: false or make one device visible"
-            )
+            raise ValueError(
+                f"data_parallel with {torch.cuda.device_count()} visible devices in one "
+                "process: launch one process per GPU with torchrun --nproc_per_node="
+                f"{torch.cuda.device_count()} -m bmcnet_esr_torch.cli.train -c <recipe> "
+                "--distributed, or set trainer.data_parallel: false, or make one device visible")
+        if not use_dp:
+            return None
+        if world % n_slices:
+            raise ValueError(f"dcn_slices={n_slices} does not divide the world size {world}")
+        return process_layout()
+
+    def _rank_rows(self, loader):
+        """``(index, count)`` of the rows of each batch this rank takes from
+        ``loader``, or ``None`` for all: a loader that splits its batches
+        already (``SequenceLoader(rows=...)``) is read as it is; any other
+        yields node batches, which the node's ranks split here."""
+        if loader is None or self.layout is None:
+            return None
+        n, r = self.layout.local_world_size, self.layout.local_rank
+        if loader.batch_size % n:
+            raise ValueError(
+                f"the node batch of {loader.batch_size} clips does not split over the "
+                f"node's {n} ranks: make batch_size a multiple of the ranks per node")
+        own = (getattr(loader, "row_index", 0), getattr(loader, "row_count", 1))
+        if own == (r, n):
+            return None
+        if own[1] != 1:
+            raise ValueError(f"the loader yields rows {own} of each batch; rank {r} of {n} "
+                             "needs its own rows or whole batches")
+        return r, n
 
     # -- checkpointing -----------------------------------------------------
 
-    def save(self, iteration: int, best: bool = False) -> str:
+    def save(self, iteration: int, best: bool = False) -> Optional[str]:
+        """Rank 0 writes the checkpoint (``None`` elsewhere); every rank
+        waits for it at a barrier."""
+        path = self._write_checkpoint(iteration, best) if self.is_writer else None
+        if self.layout is not None:
+            dist.barrier(group=self._host)
+        return path
+
+    def _write_checkpoint(self, iteration: int, best: bool) -> str:
         meta = {
             "training_mode": "iteration_based_train",
             "monitor_best": (float(self.mnt_best)
@@ -289,11 +405,11 @@ class Trainer:
         return dev
 
     def _device_prefetched(self, loader):
-        """Yield batches on the device, the next one's upload enqueued
-        before the current one is handed out."""
-        staged = None
+        """Yield batches on the device (this rank's rows of them), the next
+        one's upload enqueued before the current one is handed out."""
+        staged, rows = None, self._rank_rows(loader)
         for batch in loader:
-            nxt = self._upload(batch)
+            nxt = self._upload(batch if rows is None else shard_batch(batch, *rows))
             if staged is not None:
                 yield self._adopt(staged)
             staged = nxt
@@ -400,6 +516,7 @@ class Trainer:
         pending: list = []  # (iteration, device metrics, done event)
         t_start = time.time()
         while not stop:
+            epoch_start = iter_idx
             for batch in self._device_prefetched(self.train_loader):
                 self.state, metrics = self.train_step(self.state, batch)
                 pending.append((iter_idx, metrics, self._mark()))
@@ -434,11 +551,17 @@ class Trainer:
                     self.logger.info("training completes!")
                     stop = True
                     break
-                if self._preempted:
+                if (self._preempted if self.layout is None
+                        else any_rank(self._preempted, self._host)):
                     self.logger.warning(f"SIGTERM received — checkpointing at iteration "
                                         f"{iter_idx - 1} and exiting for clean resume")
                     stop = True
                     break
+            if iter_idx == epoch_start and not stop:
+                # an epoch of no batch would loop here forever (a node's
+                # shard of a small datalist under drop_last, for one)
+                raise ValueError("the train loader yielded no batch in an epoch: fewer "
+                                 "clips than batch_size with drop_last")
 
         # a final checkpoint always, so a resume never depends on 'best' alone
         self.save(iter_idx - 1 if iter_idx else 0, best=False)

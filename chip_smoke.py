@@ -72,12 +72,24 @@ failure:
    1-lane bundle on each stream; ms/window of the bundle against
    ``StreamingSR``; and the host cost of a call through each operator
    (``torch.ops.bmcnet.*``) against a direct call of its CUDA
-   implementation and against the same implementation as a ``custom_op``.
+   implementation and against the same implementation as a ``custom_op``;
+10. data parallelism (after phase 7) at the NFS recipe's full width:
+   a 1-rank NCCL group in this process whose ``make_parallel_train_step``
+   equals ``make_train_step`` bit for bit over 3 iterations (losses, grad
+   norms, every parameter), with ms/iteration of both and the all-reduce's
+   device time; two spawned ranks over gloo on this one card (NCCL refuses
+   two ranks on one GPU), one row of the batch each, identical parameters,
+   losses within rtol 1e-5 of the single-device step on the whole batch,
+   2 rasterizer launches an iteration on each, peak memory per rank; the
+   engine's ``mesh=`` of two on this card (2 streams x 16 windows, full
+   model in float32, int8_pall and int8_chainq), each shard bit-exact
+   against its stream's solo rollout and within the batched-vs-solo
+   bounds of the unsharded batch-2 rollout, launches as the model gives.
 
 Every kernel is called through its ``torch.library`` operator; the
 rasterizer's ``out=`` form through the operator's ``.into`` overload.  The
 last line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
-of phases 2b-9 after the build, for work on one of them, and then prints no
+of phases 2b-10 after the build, for work on one of them, and then prints no
 result line.
 """
 
@@ -1399,6 +1411,327 @@ def phase_train(dev, card: str) -> dict:
     return {"rasterize_counts": launches}
 
 
+# The parallel phase: the NFS recipe's batch and model (model args from the
+# recipe) at full width, cuDNN deterministic as Trainer sets it.
+PARALLEL_ITERS = 3  # (a): the first iteration warms up, the other two are timed
+GLOO_ITERS = 2      # (b): iterations of each of the two ranks
+GLOO_JOIN_S = 300   # (b): the ranks must be done by then
+MESH_WINDOWS = 16   # (c): windows of each of the two streams
+PARALLEL_SEED = 11
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def recipe_state(dev):
+    """The NFS recipe's model (seeded), Adam and schedule, as ``Trainer``
+    builds them."""
+    import torch
+
+    from bmcnet_esr_torch.training import build_optimizer, init_train_state
+    from bmcnet_esr_torch.training.trainer import build_model
+
+    cfg = nfs_recipe()
+    model = build_model(cfg, SCALE, torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last)
+    opt, sched = build_optimizer(model.parameters(), cfg["optimizer"], cfg["lr_scheduler"],
+                                 cfg["trainer"]["iteration_based_train"])
+    return init_train_state(model, opt, sched)
+
+
+def parallel_batches(dev, n: int) -> list:
+    import numpy as np
+    import torch
+
+    return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            for b in train_batches(np.random.default_rng(PARALLEL_SEED), n)]
+
+
+def flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+
+
+def timed_steps(step, state, batches, snapshot_after: int = 0):
+    """Run ``step`` over ``batches``: its metrics as floats, ms per
+    iteration (CUDA events, device synchronized), a host copy of the
+    parameters after ``snapshot_after`` iterations, and the state."""
+    import torch
+
+    metrics, ms, snapshot = [], [], None
+    for i, b in enumerate(batches):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i + 1 == snapshot_after:
+            snapshot = flat_params(state.model)
+    return metrics, ms, snapshot, state
+
+
+def _gloo_rank(rank: int, store: str, out: str, sizes: dict) -> None:
+    """One of phase (b)'s two ranks, a spawned process: gloo on ``cuda:0``
+    (NCCL refuses two ranks on one card), row ``rank`` of each batch.
+    ``sizes`` carries the parent's module constants into the child."""
+    globals().update(sizes)
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.kernels import rasterize
+    from bmcnet_esr_torch.parallel import (
+        init_distributed,
+        make_parallel_train_step,
+        make_process_mesh,
+        shard_batch,
+    )
+    from bmcnet_esr_torch.parallel.step import all_reduce_sum
+    from bmcnet_esr_torch.utils import strict_fp32
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
+    strict_fp32()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = init_distributed(sizes["DEVICE"], backend="gloo", init_method=f"file://{store}",
+                           timeout_s=GLOO_JOIN_S)
+    try:
+        mesh = make_process_mesh()
+        state = recipe_state(dev)
+        step = make_parallel_train_step(LR, GT, mesh, use_remat=False)
+        batches = [shard_batch(b, rank, 2) for b in parallel_batches(dev, GLOO_ITERS)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        rasterize.launches = 0
+        metrics, ms, _, state = timed_steps(step, state, batches)
+        launches = rasterize.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        bucket = torch.zeros(sum(p.numel() for p in state.model.parameters()) + 2, device=dev)
+        reduce_ms = []
+        for _ in range(5):  # the step's one collective, alone: host and device
+            t0 = time.perf_counter()
+            all_reduce_sum(bucket, mesh)
+            torch.cuda.synchronize(dev)
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        np.savez(out, losses=[m["train_loss"] for m in metrics], ms=ms, launches=launches,
+                 peak=peak, reduce_ms=reduce_ms, params=flat_params(state.model))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_parallel(dev, card: str) -> dict:
+    """Data parallelism at the NFS recipe's full width: (a) a 1-rank NCCL
+    group in this process against the single-device step, bit for bit; (b)
+    two spawned ranks over gloo on this one card against the single-device
+    step on the whole batch; (c) the engine's ``mesh=`` of two on this card,
+    each shard against its stream's solo rollout bit for bit.  Returns each
+    kernel's launches made by (a) and (c)."""
+    import importlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bmcnet_esr_torch.data import DatasetConfig
+    from bmcnet_esr_torch.inference import InferenceEngine
+    from bmcnet_esr_torch.inference.engine import DTYPES, INT8_DTYPES
+    from bmcnet_esr_torch.models import BMCNet
+    from bmcnet_esr_torch.ops.batch import compact_events
+    from bmcnet_esr_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        make_parallel_train_step,
+        make_process_mesh,
+    )
+    from bmcnet_esr_torch.parallel.step import all_reduce_sum
+    from bmcnet_esr_torch.training import make_train_step
+
+    mods = {n: importlib.import_module(f"bmcnet_esr_torch.kernels.{n}") for n in KERNEL_MODULES}
+    totals = {KERNEL_NAMES[n]: 0 for n in KERNEL_MODULES}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    batches = parallel_batches(dev, PARALLEL_ITERS)
+
+    # (a) the single-device step, then a 1-rank NCCL group's, from one state
+    plain, plain_ms, snapshot, state = timed_steps(
+        make_train_step(LR, GT, use_remat=False), recipe_state(dev), batches, GLOO_ITERS)
+    want = [p.detach().clone() for p in state.model.parameters()]
+    del state
+    torch.cuda.empty_cache()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    init_distributed(dev, init_method=f"tcp://localhost:{free_port()}")
+    try:
+        mesh = make_process_mesh()
+        state = recipe_state(dev)
+        pstep = make_parallel_train_step(LR, GT, mesh, use_remat=False)
+        zero_counts(mods)
+        par, par_ms, _, state = timed_steps(pstep, state, batches)
+        got = counts(mods)
+        check(got["rasterize_counts"] == 2 * PARALLEL_ITERS and sum(got.values()) == got[
+            "rasterize_counts"], f"1-rank NCCL step: launches {got}, expected 2 rasterizer "
+                                 "launches an iteration only")
+        for k, v in got.items():
+            totals[k] += v
+        for key in ("train_loss", "train_mse_loss", "grad_norm"):
+            check([m[key] for m in par] == [m[key] for m in plain],
+                  f"1-rank NCCL {key} {[m[key] for m in par]} != {[m[key] for m in plain]}")
+        same = all(torch.equal(p.detach(), q) for p, q in zip(state.model.parameters(), want))
+        check(same, "1-rank NCCL step: parameters differ from the single-device step's")
+        bucket = torch.zeros(sum(p.numel() for p in state.model.parameters()) + 2, device=dev)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profile_edge()
+            for _ in range(10):
+                all_reduce_sum(bucket, mesh)
+            profile_edge()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+        nccl_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 10
+        nccl_n = sum(e.count for e in rows) / 10
+        host_ms = cuda_ms(lambda: all_reduce_sum(bucket, mesh), iters=20)
+        print(f"parallel (a) 1-rank NCCL step, NFS recipe full width, batch {TRAIN_B}: losses, "
+              f"MSEs, grad norms and all {len(want)} parameters bit-exact against the "
+              f"single-device step over {PARALLEL_ITERS} iterations; ms/iteration "
+              f"{float(np.median(par_ms[1:])):.3f} (single-device "
+              f"{float(np.median(plain_ms[1:])):.3f}; medians of {PARALLEL_ITERS - 1} after one "
+              f"warm-up, NCCL {par_ms}, single {plain_ms}); all-reduce of the "
+              f"{bucket.numel() * 4 / 2**20:.2f} MiB bucket: device {nccl_ms:.4f} ms in "
+              f"{nccl_n:.0f} NCCL kernels a call, {host_ms:.4f} ms a call by CUDA events; "
+              f"rasterizer launches {got['rasterize_counts']}; on {card}")
+        del state, bucket
+    finally:
+        dist.destroy_process_group()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            os.environ.pop(k, None)
+
+    # (b) two ranks over gloo on this card, one row of the batch each
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "outputs", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+        sizes = dict(LR=LR, GT=GT, SCALE=SCALE, N_LR=N_LR, TRAIN_B=TRAIN_B, TRAIN_L=TRAIN_L,
+                     DEVICE=str(dev))
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_gloo_rank, args=(r, os.path.join(tmp, "store"), outs[r],
+                                                      sizes)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(GLOO_JOIN_S - (time.perf_counter() - t0), 1))
+            check(not any(p.is_alive() for p in procs),
+                  f"gloo ranks still running after {GLOO_JOIN_S} s")
+            check(all(p.exitcode == 0 for p in procs),
+                  f"gloo ranks exited {[p.exitcode for p in procs]}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for out in outs:
+            with np.load(out) as z:
+                ranks.append({k: z[k] for k in z.files})
+    a, b = ranks
+    check(np.array_equal(a["params"], b["params"]), "the gloo ranks' parameters differ")
+    check(np.array_equal(a["losses"], b["losses"]), "the gloo ranks' losses differ")
+    ref = np.asarray([m["train_loss"] for m in plain[:GLOO_ITERS]])
+    rel = float(np.max(np.abs(a["losses"] / ref - 1)))
+    dparam = float(np.abs(a["params"] - snapshot).max())
+    check(rel <= 1e-5, f"gloo ranks' losses {a['losses']} vs single-device {ref}: rel {rel}")
+    for r, z in enumerate(ranks):
+        check(int(z["launches"]) == 2 * GLOO_ITERS,
+              f"gloo rank {r}: {int(z['launches'])} rasterizer launches in {GLOO_ITERS} iterations")
+        print(f"parallel (b) gloo rank {r} of 2 on one card, 1 row of the batch: "
+              f"{GLOO_ITERS} iterations at {', '.join(f'{v:.3f}' for v in z['ms'])} ms, peak "
+              f"memory {float(z['peak']) / 2**30:.2f} GiB, rasterizer launches "
+              f"{int(z['launches'])} (2 an iteration), all-reduce of the bucket through the "
+              f"host {', '.join(f'{v:.3f}' for v in z['reduce_ms'])} ms")
+    print(f"parallel (b): ranks' parameters and losses identical; losses {a['losses'].tolist()} "
+          f"against the single-device step's {ref.tolist()} on the whole batch, max rel |d| "
+          f"{rel:.2e} (rtol 1e-5); parameters max |d| {dparam:.3e}; {wall:.1f} s from spawn to "
+          f"join; on {card}")
+
+    # (c) the engine's mesh of two on this card, 2 streams
+    rng = np.random.default_rng(PARALLEL_SEED + 1)
+    n = MESH_WINDOWS
+    inp = compact_events(random_windows(rng, 2 * (n + 1), N_LR, LR).reshape(n + 1, 2, 4, N_LR))
+    gt = compact_events(random_windows(rng, 2 * n, SCALE**2 * N_LR, GT).reshape(
+        n, 2, 4, SCALE**2 * N_LR))
+
+    def load_chunk(pos, steps):
+        return ((inp[0][pos : pos + steps + 1], inp[1][pos : pos + steps + 1]),
+                (gt[0][pos : pos + steps], gt[1][pos : pos + steps]))
+
+    def lane(j):
+        def one(pos, steps):
+            return tuple(tuple(a[:, j : j + 1] for a in part) for part in load_chunk(pos, steps))
+        return one
+
+    full_sd = seeded_full_weights(BMCNet(scale=SCALE))
+    mesh = make_mesh(2, devices=[dev, dev])
+    for dtype in ("float32", "int8_pall", "int8_chainq"):
+        m = BMCNet(scale=SCALE, n_c=128, n_b=5, dtype=DTYPES.get(dtype, torch.bfloat16),
+                   quant=INT8_DTYPES.get(dtype, False))
+        m.load_state_dict(full_sd)
+        sharded = InferenceEngine(m, DatasetConfig(scale=SCALE), chunk_size=CHUNK,
+                                  visualize=False, mesh=mesh, device=dev)
+        single = InferenceEngine(m, DatasetConfig(scale=SCALE), chunk_size=CHUNK,
+                                 visualize=False, device=dev)
+        sharded.infer_windows_batch(load_chunk, [2, 2], LR, GT)  # warm-ups, outside the counts
+        single.infer_windows_batch(load_chunk, [2, 2], LR, GT)
+        single.infer_windows(lane(0), 2, LR, GT)
+        torch.cuda.synchronize()
+        zero_counts(mods)
+        t0 = time.perf_counter()
+        rs = sharded.infer_windows_batch(load_chunk, [n, n], LR, GT, return_per_window=True)
+        wall = time.perf_counter() - t0
+        got = counts(mods)
+        per_stream = expected_launches("full", dtype, n, min(CALIB_STEPS, CHUNK, n))
+        check(got["rasterize_counts"] > 0, f"mesh {dtype}: the rasterizer never launched")
+        for k, v in per_stream.items():
+            check(got[k] == 2 * v, f"mesh {dtype}: {got[k]} {k} launches, the model gives "
+                                   f"{2 * v} for two batch-1 shards")
+        for k, v in got.items():
+            totals[k] += v
+        solo = [single.infer_windows(lane(j), n, LR, GT, return_per_window=True) for j in (0, 1)]
+        for j in (0, 1):
+            for key in ("esr_mse", "bicubic_mse"):
+                check(np.array_equal(rs[j]["per_window"][key], solo[j]["per_window"][key]),
+                      f"mesh {dtype}: shard {j}'s {key} differs from its solo rollout")
+        t1 = time.perf_counter()
+        batched = single.infer_windows_batch(load_chunk, [n, n], LR, GT, return_per_window=True)
+        wall_batched = time.perf_counter() - t1
+        got_pw = np.stack([r["per_window"]["esr_mse"] for r in rs])
+        want_pw = np.stack([r["per_window"]["esr_mse"] for r in batched])
+        d_max = float(np.abs(got_pw - want_pw).max() / np.abs(want_pw).max())
+        rmse = float(np.sqrt(np.mean((got_pw - want_pw) ** 2)) / max(np.abs(want_pw).max(), 1.0))
+        if dtype == "float32":
+            check(d_max <= 1e-5, f"mesh float32 against the batch-2 rollout: {d_max}")
+        else:
+            check(rmse <= INT8_BOUND, f"mesh {dtype} against the batch-2 rollout: {rmse}")
+        print(f"parallel (c) engine mesh of 2 on one card, full {dtype}, 2 streams x {n} "
+              f"windows: each shard's per-window esr_mse and bicubic_mse bit-exact against "
+              f"its solo rollout; against the unsharded batch-2 rollout max|d|/max|x| "
+              f"{d_max:.3e}, rel-RMSE {rmse:.3e}; {wall / n * 1e3:.3f} ms a window of both "
+              f"streams sharded, {wall_batched / n * 1e3:.3f} unsharded (wall, calibration "
+              f"included); launches {got}; on {card}")
+        del sharded, single, m
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    return totals
+
+
 def phase_h5(dev) -> str:
     """Goldens through h5 when h5py imports; returns which route ran."""
     try:
@@ -2134,7 +2467,8 @@ def phase_export(dev, card: str) -> dict:
     return totals
 
 
-PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing", "serve", "export", "train")
+PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing", "serve", "export", "train",
+          "parallel")
 
 
 def main(argv=None) -> int:
@@ -2197,6 +2531,9 @@ def main(argv=None) -> int:
     if "train" in phases:  # before the rollouts: its profile counts the rasterizer's kernels
         train_launches = phase_train(dev, card)
         done("train")
+    if "parallel" in phases:
+        parallel_launches = phase_parallel(dev, card)
+        done("parallel")
     if "rollouts" in phases:
         launches = phase_rollouts(dev, card)
         done("rollouts")
@@ -2213,7 +2550,8 @@ def main(argv=None) -> int:
         "source": "bmcnet_esr_torch/csrc/rasterize.cu",
         "replaces": "bmcnet_esr_tpu/ops/pallas/rasterize.py:44",
         "launches": (launches["rasterize_counts"] + train_launches["rasterize_counts"]
-                     + serve_launches["rasterize_counts"] + export_launches["rasterize_counts"]),
+                     + serve_launches["rasterize_counts"] + export_launches["rasterize_counts"]
+                     + parallel_launches["rasterize_counts"]),
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -2230,7 +2568,8 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": f"bmcnet_esr_torch/csrc/{src}",
             "replaces": f"bmcnet_esr_tpu/ops/pallas/{body}",
-            "launches": launches[name] + serve_launches[name] + export_launches[name],
+            "launches": (launches[name] + serve_launches[name] + export_launches[name]
+                         + parallel_launches[name]),
             "max_abs_err": errs8[name],
             "ms": o["ms"],
             "plain_ms": o["plain_ms"],
@@ -2241,10 +2580,14 @@ def main(argv=None) -> int:
     print(f"rasterizer launches: {launches['rasterize_counts']} on the inference path, "
           f"{train_launches['rasterize_counts']} on the training path, "
           f"{serve_launches['rasterize_counts']} on the serving path, "
-          f"{export_launches['rasterize_counts']} through serving bundles; int8 kernels on the "
-          f"serving path: { {k: v for k, v in serve_launches.items() if k != 'rasterize_counts'} }"
+          f"{export_launches['rasterize_counts']} through serving bundles, "
+          f"{parallel_launches['rasterize_counts']} on the data-parallel paths; int8 kernels on "
+          f"the serving path: "
+          f"{ {k: v for k, v in serve_launches.items() if k != 'rasterize_counts'} }"
           f", through bundles: "
-          f"{ {k: v for k, v in export_launches.items() if k != 'rasterize_counts'} }")
+          f"{ {k: v for k, v in export_launches.items() if k != 'rasterize_counts'} }, through "
+          f"the engine's mesh: "
+          f"{ {k: v for k, v in parallel_launches.items() if k != 'rasterize_counts'} }")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -598,3 +598,89 @@ def test_bundle_on_cuda_equals_streaming_sr(cuda, dtype, tmp_path):
             assert got is None
             continue
         np.testing.assert_array_equal(got[0], want, err_msg=f"window {i}")
+
+
+# -- data parallelism on the card ---------------------------------------------
+
+
+def test_one_rank_nccl_step_equals_the_plain_step_on_cuda(cuda, monkeypatch):
+    """A 1-rank NCCL group: ``make_parallel_train_step`` (one all-reduce of
+    the gradient bucket, divided by 1) equals ``make_train_step`` bit for
+    bit over two steps, channels-last parameters included."""
+    import socket
+
+    import torch.distributed as dist
+
+    from bmcnet_esr_torch.parallel import (
+        init_distributed,
+        make_parallel_train_step,
+        make_process_mesh,
+    )
+    from bmcnet_esr_torch.training import build_optimizer, init_train_state, make_train_step
+
+    def state():
+        m = BMCNet(scale=4, n_c=16, n_b=2, generator=torch.Generator().manual_seed(2))
+        m = m.to(cuda, memory_format=torch.channels_last)
+        opt, sched = build_optimizer(m.parameters(), {"name": "Adam", "args": {
+            "lr": 1e-4, "weight_decay": 1e-5, "amsgrad": True}}, {}, {})
+        return init_train_state(m, opt, sched)
+
+    batches = [{k: v.to(cuda) for k, v in _train_batch(s).items()} for s in (31, 41)]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    runs = []
+    init_distributed(cuda, init_method=f"tcp://localhost:{port}")
+    try:
+        for step in (make_train_step((45, 80), (180, 320), use_remat=False),
+                     make_parallel_train_step((45, 80), (180, 320), make_process_mesh(),
+                                              use_remat=False)):
+            st, metrics = state(), []
+            for b in batches:
+                st, m = step(st, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs.append((metrics, [p.detach().clone() for p in st.model.parameters()]))
+    finally:
+        dist.destroy_process_group()
+    (m1, p1), (m2, p2) = runs
+    assert m1 == m2
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8_pall"])
+def test_engine_mesh_of_two_on_one_card_equals_solo_rollouts(cuda, dtype):
+    """``make_mesh(2, devices=[cuda:0] * 2)``: each shard, a batch-1 rollout
+    on its own replica and stream, equals its stream's solo rollout bit for
+    bit (the int8 scales calibrated per lane)."""
+    from bmcnet_esr_torch.inference.engine import DTYPES, INT8_DTYPES
+    from bmcnet_esr_torch.parallel import make_mesh
+
+    inp = compact_events(_events(8, 2 * 7, 256, (16, 24)).reshape(7, 2, 4, 256))
+    gt = compact_events(_events(9, 2 * 6, 4096, (64, 96)).reshape(6, 2, 4, 4096))
+
+    def load_chunk(pos, steps):
+        return ((inp[0][pos : pos + steps + 1], inp[1][pos : pos + steps + 1]),
+                (gt[0][pos : pos + steps], gt[1][pos : pos + steps]))
+
+    def lane(j):
+        return lambda pos, steps: tuple(tuple(a[:, j : j + 1] for a in part)
+                                        for part in load_chunk(pos, steps))
+
+    m = BMCNet(scale=4, n_c=16, n_b=2, dtype=DTYPES.get(dtype, torch.bfloat16),
+               quant=INT8_DTYPES.get(dtype, False), generator=torch.Generator().manual_seed(3))
+    sharded = InferenceEngine(m, DatasetConfig(scale=4), chunk_size=4, visualize=False,
+                              mesh=make_mesh(2, devices=[cuda, cuda]), device=cuda)
+    solo = InferenceEngine(m, DatasetConfig(scale=4), chunk_size=4, visualize=False,
+                           device=cuda)
+    before = rasterize.launches
+    got = sharded.infer_windows_batch(load_chunk, [6, 6], (16, 24), (64, 96),
+                                      return_per_window=True)
+    assert rasterize.launches > before
+    for j in (0, 1):
+        want = solo.infer_windows(lane(j), 6, (16, 24), (64, 96), return_per_window=True)
+        for key in ("esr_mse", "bicubic_mse"):
+            np.testing.assert_array_equal(got[j]["per_window"][key], want["per_window"][key])

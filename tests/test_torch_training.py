@@ -596,16 +596,27 @@ def test_trainer_sets_deterministic_cudnn(h5, tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_what_it_cannot_run(h5, tmp_path):
-    for over, what in (({"model_parallel": 2}, "model_parallel"),
-                       ({"dcn_slices": 2}, "dcn_slices")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            _trainer(h5, tmp_path, what, **over)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        _trainer(h5, tmp_path, "model_parallel", model_parallel=2)
+    # one process: a multi-slice recipe never silently trains on one device
+    with pytest.raises(ValueError, match="requires data parallelism"):
+        _trainer(h5, tmp_path, "dcn_slices", dcn_slices=2)
     with pytest.raises(ValueError, match="serving-only"):
         build_model({"model": {"args": {"quant": "pconv"}}}, scale=2)
     assert build_model({"model": {"args": {"variant": "plain", "quant": "qat"}}}, 2).quant == "qat"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(RunConfig(_cfg(tmp_path), runid="dev"), train_loader=loader(h5[0]), seed=0)
+
+
+def test_trainer_raises_on_an_epoch_without_a_batch(h5, tmp_path):
+    """A loader that yields no batch (fewer clips than batch_size under
+    drop_last, as a node's shard of a small datalist can) raises instead of
+    looping forever."""
+    tr = Trainer(RunConfig(_cfg(tmp_path), runid="empty"),
+                 train_loader=loader(h5[0], batch_size=1000), seed=0, device="cpu")
+    with pytest.raises(ValueError, match="no batch in an epoch"):
+        tr.train()
 
 
 def test_inp_len_ships_only_for_event_terms(h5, tmp_path):
@@ -683,7 +694,8 @@ def test_cli_train_on_the_cpu(h5, tmp_path):
     assert "valid_loss" in log
     ckpt = latest_checkpoint(str(tmp_path / "runs" / "models" / "BMCNet_nfs" / "cpu"))
     assert ckpt.endswith("iteration_4")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # --distributed outside a torchrun launch: the missing environment is named
+    with pytest.raises(RuntimeError, match="lacks RANK, WORLD_SIZE.*torchrun"):
         cli_train.main(["-c", str(path), "--distributed", "--device", "cpu"])
 
 
