@@ -30,10 +30,15 @@ metrics come back to the host.  Behaviour kept from the JAX engine:
 
 ``mesh=`` (``parallel.make_mesh``) shards batched rollouts by stream, the
 counterpart of ``engine.py:150-258``: the B streams split into ``mesh.size``
-contiguous groups, each rolled out by its own replica of the model on its
-mesh device and its own CUDA stream, every group's chunk enqueued before
-any is waited on; int8 scales stay per lane, so a shard's lanes keep their
-solo scales.  One process: the streams need no collective.
+contiguous groups, each rolled out on its mesh device and its own CUDA
+stream, every group's chunk enqueued before any is waited on.  The first
+group runs on ``self.model`` where that lives (unless it is int8: a shard
+calibrates its own lanes); every other group on a replica copied from
+``self.model`` at the start of the rollout, so weights and scales
+installed after construction reach every group.  int8 scales stay per
+lane, so a shard's lanes keep their solo scales (per-lane scales the
+caller installed are cut to each shard's lanes).  One process: the streams
+need no collective.
 
 ``load_model_for_inference`` reads the port's training checkpoints too,
 their parameters or, with ``use_ema``, their EMA.  Not ported: Orbax
@@ -48,6 +53,7 @@ import dataclasses
 import logging
 import os
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -64,6 +70,7 @@ from bmcnet_esr_torch.models import (
     calibrate_act_scales,
     count_params,
     load_checkpoint,
+    set_act_scales,
 )
 from bmcnet_esr_torch.ops.batch import batch_counts_from_compact, compact_events
 from bmcnet_esr_torch.ops.resize import resize_bicubic
@@ -77,6 +84,23 @@ INT8_DTYPES = {"int8": True, "int8_pconv": "pconv", "int8_p1x1": "p1x1",
                "int8_pall": "pall", "int8_pquant": "pquant", "int8_chain": "chain",
                "int8_chainq": "chainq"}
 _STREAMS = ("lr_event_img", "hr_esr_event_img", "hr_bicubic_event_img", "hr_gt_event_img")
+
+# The static int8 scales an engine derived, by id (held weakly).  An engine
+# derives a model's scales anew for every file or group over these, so each
+# lane's scale comes from its own stream, whichever engine derived them
+# before; any other scales on the model are the caller's, and are kept.
+_DERIVED: Dict[int, weakref.ref] = {}
+
+
+def _callers(scales: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``scales`` when the caller installed them, else ``{}`` (none, or
+    all derived by an engine)."""
+    for s in scales.values():
+        r = _DERIVED.get(id(s))
+        if r is None or r() is not s:
+            return scales
+    return {}
+
 
 def _calib_pairs(inp_xy: torch.Tensor, inp_p: torch.Tensor, inp_res) -> torch.Tensor:
     """A chunk's compact input windows -> its ``[S, B, 2, H, W, 2]`` pairs."""
@@ -147,8 +171,6 @@ class _Shard:
     device: torch.device
     stream: Optional[torch.cuda.Stream] = None
     copy_stream: Optional[torch.cuda.Stream] = None
-    # True once the engine installed this replica's static int8 scales
-    auto_quant: bool = False
 
     @classmethod
     def on_device(cls, model, device: torch.device, own_stream: bool) -> "_Shard":
@@ -182,9 +204,10 @@ class InferenceEngine:
         ``mesh`` (``parallel.make_mesh``): batched rollouts
         (:meth:`infer_windows_batch`, :meth:`infer_file_batch`) split their
         streams into ``mesh.size`` contiguous groups, one per mesh device,
-        each rolled out by its own replica of the model on its own CUDA
-        stream; a group of streams that the mesh does not divide runs
-        unsharded, with one warning (``engine.py:212-230``)."""
+        each rolled out on its own CUDA stream, the first on ``model`` where
+        it lives (an int8 model excepted) and the others on replicas copied
+        from it for each rollout; a group of streams that the mesh does not
+        divide runs unsharded, with one warning (``engine.py:212-230``)."""
         self.device = resolve_device(device)
         strict_fp32()
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
@@ -214,28 +237,30 @@ class InferenceEngine:
         self.h2d_overlap = bool(h2d_overlap)
         self._overlap_skips = 0
         self._macs: Dict[Tuple, float] = {}  # MACs per window, by (batch, input resolution)
-        # int8: a shard's ``auto_quant`` turns True once this engine installed
-        # its static scales, which it then derives anew for every file /
-        # group, so each lane's scale comes from its own stream; scales the
-        # caller installed are kept
         self._solo = _Shard.on_device(self.model, self.device, own_stream=False)
         self.mesh = mesh
-        self._replicas: List[_Shard] = []
+        # one shard a mesh device, its streams without a model: _split gives
+        # each a model for the rollout at hand
+        self._mesh_shards: List[_Shard] = []
         self._warned_unsharded = False
         if mesh is not None:
             for d in mesh.devices:
                 d = resolve_device(d)
                 if d.type != self.device.type:
                     raise ValueError(f"mesh device {d} is not a {self.device.type} device")
-                replica = copy.deepcopy(self.model).to(d, memory_format=torch.channels_last)
-                self._replicas.append(_Shard.on_device(replica.eval(), d, own_stream=True))
+                self._mesh_shards.append(_Shard.on_device(None, d, own_stream=True))
         self.params_m = count_params(self.model) / 1e6
 
     def _split(self, batch: int) -> List[Tuple[_Shard, slice]]:
-        """The shards of a rollout of ``batch`` streams and their lanes."""
-        if not self._replicas or batch <= 1:
+        """The shards of a rollout of ``batch`` streams and their lanes.  A
+        mesh's first shard is ``self._solo`` where that lives (on the
+        caller's stream), unless the model is int8: calibrating a shard's
+        lanes on it would leave them there.  The others get replicas of
+        ``self.model`` as it is now, with the caller's scales (per-lane ones
+        cut to the shard's lanes) and without derived ones."""
+        if not self._mesh_shards or batch <= 1:
             return [(self._solo, slice(0, batch))]
-        n = len(self._replicas)
+        n = len(self._mesh_shards)
         if batch % n:
             if not self._warned_unsharded:
                 self._warned_unsharded = True
@@ -244,7 +269,21 @@ class InferenceEngine:
                     "group unsharded (results are identical, just single-device)", batch, n)
             return [(self._solo, slice(0, batch))]
         g = batch // n
-        return [(sh, slice(i * g, (i + 1) * g)) for i, sh in enumerate(self._replicas)]
+        caller = _callers(act_scales(self.model))
+        out = []
+        for i, sh in enumerate(self._mesh_shards):
+            lanes = slice(i * g, (i + 1) * g)
+            if i == 0 and sh.device == self.device and not self.model.quant:
+                out.append((self._solo, lanes))
+                continue
+            replica = copy.deepcopy(self.model).to(sh.device, memory_format=torch.channels_last)
+            if replica.quant:
+                set_act_scales(replica, {k: s[lanes] if s.numel() > 1 else s
+                                         for k, s in caller.items()})
+            if sh.stream is not None:  # the copy was enqueued on the device's current stream
+                sh.stream.wait_stream(torch.cuda.current_stream(sh.device))
+            out.append((dataclasses.replace(sh, model=replica), lanes))
+        return out
 
     # -- host -> device ------------------------------------------------------
 
@@ -312,13 +351,15 @@ class InferenceEngine:
     @staticmethod
     def _maybe_calibrate(shard: _Shard, dev, inp_res, batch: int) -> None:
         """int8 static scales from (up to) 16 recurrent steps over the first
-        chunk's windows, per lane (``models/quant.calibrate_act_scales``)."""
+        chunk's windows, per lane (``models/quant.calibrate_act_scales``),
+        unless the model holds the caller's."""
         model = shard.model
-        if not model.quant or (act_scales(model) and not shard.auto_quant):
+        if not model.quant or _callers(act_scales(model)):
             return
         pairs = _calib_pairs(dev[0], dev[1], inp_res)
         calibrate_act_scales(model, pairs, model.init_state(batch, *inp_res, device=shard.device))
-        shard.auto_quant = True
+        for s in act_scales(model).values():
+            _DERIVED[id(s)] = weakref.ref(s, lambda _, key=id(s): _DERIVED.pop(key, None))
 
     def _run_chunk(self, model, carry, dev, inp_res, gt_res, want_images: bool):
         """Enqueue one chunk; returns the new carry and device results."""
@@ -358,6 +399,8 @@ class InferenceEngine:
         for (sh, _), ts in zip(shards, parts):
             with sh.on():
                 host.append([t.float().cpu().numpy() for t in ts])
+        if len(host) == 1:
+            return host[0]
         return [np.concatenate(cols, 1) for cols in zip(*host)]
 
     # -- the chunked rollout ---------------------------------------------------

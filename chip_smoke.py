@@ -1360,7 +1360,7 @@ def phase_train(dev, card: str) -> dict:
         configs = [("float32", False, True), ("float32", False, False), ("float32", True, True),
                    ("bfloat16", False, True), ("bfloat16", True, True)]
         for dtype, remat, det in configs:
-            warm, timed, prof = (1, 3, 1) if remat else (2, 5, 2)
+            warm, timed, prof = (1, 2, 1) if remat else (2, 4, 2)
             name = (f"{dtype} remat={'on' if remat else 'off'}"
                     + ("" if det else " deterministic=off"))
             torch.cuda.empty_cache()
@@ -1414,7 +1414,7 @@ def phase_train(dev, card: str) -> dict:
 # The parallel phase: the NFS recipe's batch and model (model args from the
 # recipe) at full width, cuDNN deterministic as Trainer sets it.
 PARALLEL_ITERS = 3  # (a): the first iteration warms up, the other two are timed
-GLOO_ITERS = 2      # (b): iterations of each of the two ranks
+DP_ITERS = 3        # (b): Trainer iterations; iteration 2 validates and saves
 GLOO_JOIN_S = 300   # (b): the ranks must be done by then
 MESH_WINDOWS = 16   # (c): windows of each of the two streams
 PARALLEL_SEED = 11
@@ -1458,14 +1458,13 @@ def flat_params(model):
     return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
 
 
-def timed_steps(step, state, batches, snapshot_after: int = 0):
+def timed_steps(step, state, batches):
     """Run ``step`` over ``batches``: its metrics as floats, ms per
-    iteration (CUDA events, device synchronized), a host copy of the
-    parameters after ``snapshot_after`` iterations, and the state."""
+    iteration (CUDA events, device synchronized), and the state."""
     import torch
 
-    metrics, ms, snapshot = [], [], None
-    for i, b in enumerate(batches):
+    metrics, ms = [], []
+    for b in batches:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         state, m = step(state, b)
@@ -1473,64 +1472,102 @@ def timed_steps(step, state, batches, snapshot_after: int = 0):
         end.synchronize()
         ms.append(start.elapsed_time(end))
         metrics.append({k: float(v) for k, v in m.items()})
-        if i + 1 == snapshot_after:
-            snapshot = flat_params(state.model)
-    return metrics, ms, snapshot, state
+    return metrics, ms, state
+
+
+def dp_trainer(work: str, runid: str, dev, make_dirs: bool = True):
+    """(b)'s run: the NFS recipe's ``Trainer`` for ``DP_ITERS`` iterations on
+    in-memory node batches of the recipe's 2 clips (a loader that does not
+    split them: inside a group the Trainer keeps its rank's rows), with a
+    validation over two batches, the second with one valid clip, and a
+    checkpoint at iteration 2.  Returns the trainer and a record of each
+    step's loss, rasterizer launches and a CUDA event after it."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.kernels import rasterize
+    from bmcnet_esr_torch.training import Trainer
+    from bmcnet_esr_torch.training.config import RunConfig
+
+    rng = np.random.default_rng(PARALLEL_SEED)
+    data = train_batches(rng, DP_ITERS)
+    valid = train_batches(rng, 1, mask=[1.0, 1.0]) + train_batches(rng, 1, mask=[1.0, 0.0])
+    tr = Trainer(RunConfig(_recipe(work, DP_ITERS, 2, valid_step=2), runid=runid,
+                           make_dirs=make_dirs),
+                 train_loader=MemoryLoader(data), valid_loader=MemoryLoader(valid, pad_last=True),
+                 seed=0, device=dev)
+    rec = {"metrics": [], "launches": [], "events": []}
+    step = tr.train_step
+
+    def recording(state, batch):
+        before = rasterize.launches
+        state, m = step(state, batch)
+        rec["launches"].append(rasterize.launches - before)
+        rec["metrics"].append(m)
+        rec["events"].append(torch.cuda.Event(enable_timing=True))
+        rec["events"][-1].record()
+        return state, m
+
+    tr.train_step = recording
+    return tr, rec
 
 
 def _gloo_rank(rank: int, store: str, out: str, sizes: dict) -> None:
     """One of phase (b)'s two ranks, a spawned process: gloo on ``cuda:0``
-    (NCCL refuses two ranks on one card), row ``rank`` of each batch.
-    ``sizes`` carries the parent's module constants into the child."""
+    (NCCL refuses two ranks on one card), the NFS recipe's ``Trainer`` on
+    the node batches of ``dp_trainer``, then the resume from the shared
+    checkpoint.  ``sizes`` carries the parent's module constants into the
+    child."""
     globals().update(sizes)
     import numpy as np
     import torch
 
     from bmcnet_esr_torch.kernels import rasterize
-    from bmcnet_esr_torch.parallel import (
-        init_distributed,
-        make_parallel_train_step,
-        make_process_mesh,
-        shard_batch,
-    )
+    from bmcnet_esr_torch.parallel import init_distributed
     from bmcnet_esr_torch.parallel.step import all_reduce_sum
-    from bmcnet_esr_torch.utils import strict_fp32
+    from bmcnet_esr_torch.training.checkpoint import latest_checkpoint
 
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
-    strict_fp32()
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     dev = init_distributed(sizes["DEVICE"], backend="gloo", init_method=f"file://{store}",
                            timeout_s=GLOO_JOIN_S)
     try:
-        mesh = make_process_mesh()
-        state = recipe_state(dev)
-        step = make_parallel_train_step(LR, GT, mesh, use_remat=False)
-        batches = [shard_batch(b, rank, 2) for b in parallel_batches(dev, GLOO_ITERS)]
         torch.cuda.reset_peak_memory_stats(dev)
+        tr, rec = dp_trainer(sizes["WORK"], "dp", dev, make_dirs=rank == 0)
+        check(tr.mesh is not None and tr.mesh.size() == 2, f"rank {rank}: no 2-rank mesh")
         rasterize.launches = 0
-        metrics, ms, _, state = timed_steps(step, state, batches)
+        tr.train()
+        torch.cuda.synchronize(dev)
         launches = rasterize.launches
         peak = torch.cuda.max_memory_allocated(dev)
-        bucket = torch.zeros(sum(p.numel() for p in state.model.parameters()) + 2, device=dev)
+        ev = rec["events"]
+        params = flat_params(tr.state.model)
+        bucket = torch.zeros(sum(p.numel() for p in tr.state.model.parameters()) + 2, device=dev)
         reduce_ms = []
         for _ in range(5):  # the step's one collective, alone: host and device
             t0 = time.perf_counter()
-            all_reduce_sum(bucket, mesh)
+            all_reduce_sum(bucket, tr.mesh)
             torch.cuda.synchronize(dev)
             reduce_ms.append((time.perf_counter() - t0) * 1e3)
-        np.savez(out, losses=[m["train_loss"] for m in metrics], ms=ms, launches=launches,
-                 peak=peak, reduce_ms=reduce_ms, params=flat_params(state.model))
+        start = tr.resume(latest_checkpoint(tr.run.save_dir))
+        np.savez(out, losses=[float(m["train_loss"]) for m in rec["metrics"]],
+                 step_launches=rec["launches"], launches=launches, peak=peak,
+                 ms=[a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])], reduce_ms=reduce_ms,
+                 params=params, valid_loss=tr.valid_metrics.result()["valid_loss"],
+                 resume_start=start,
+                 resumed_same=np.array_equal(flat_params(tr.state.model), params))
     finally:
         torch.distributed.destroy_process_group()
 
 
 def phase_parallel(dev, card: str) -> dict:
     """Data parallelism at the NFS recipe's full width: (a) a 1-rank NCCL
-    group in this process against the single-device step, bit for bit; (b)
-    two spawned ranks over gloo on this one card against the single-device
-    step on the whole batch; (c) the engine's ``mesh=`` of two on this card,
-    each shard against its stream's solo rollout bit for bit.  Returns each
-    kernel's launches made by (a) and (c)."""
+    group in this process, its step against the single-device step bit for
+    bit, with the group's broadcast of the state and host-side agreement;
+    (b) two spawned ranks over gloo on this one card, each running the
+    ``Trainer`` on the node batches, against the single-device ``Trainer``;
+    (c) the engine's ``mesh=`` of two on this card, each shard against its
+    stream's solo rollout bit for bit.  Returns each kernel's launches in
+    (a), (b) (both ranks) and (c)."""
     import importlib
 
     import numpy as np
@@ -1543,13 +1580,17 @@ def phase_parallel(dev, card: str) -> dict:
     from bmcnet_esr_torch.models import BMCNet
     from bmcnet_esr_torch.ops.batch import compact_events
     from bmcnet_esr_torch.parallel import (
+        any_rank,
+        host_group,
         init_distributed,
         make_mesh,
         make_parallel_train_step,
         make_process_mesh,
+        replicate_tree,
     )
     from bmcnet_esr_torch.parallel.step import all_reduce_sum
     from bmcnet_esr_torch.training import make_train_step
+    from bmcnet_esr_torch.training.checkpoint import latest_checkpoint
 
     mods = {n: importlib.import_module(f"bmcnet_esr_torch.kernels.{n}") for n in KERNEL_MODULES}
     totals = {KERNEL_NAMES[n]: 0 for n in KERNEL_MODULES}
@@ -1558,8 +1599,8 @@ def phase_parallel(dev, card: str) -> dict:
     batches = parallel_batches(dev, PARALLEL_ITERS)
 
     # (a) the single-device step, then a 1-rank NCCL group's, from one state
-    plain, plain_ms, snapshot, state = timed_steps(
-        make_train_step(LR, GT, use_remat=False), recipe_state(dev), batches, GLOO_ITERS)
+    plain, plain_ms, state = timed_steps(
+        make_train_step(LR, GT, use_remat=False), recipe_state(dev), batches)
     want = [p.detach().clone() for p in state.model.parameters()]
     del state
     torch.cuda.empty_cache()
@@ -1568,9 +1609,13 @@ def phase_parallel(dev, card: str) -> dict:
     try:
         mesh = make_process_mesh()
         state = recipe_state(dev)
+        replicate_tree(state)  # NCCL broadcasts of the channels-last parameters
+        host = host_group()    # under NCCL a gloo group of its own
+        check(host is not None and any_rank(True, host) and not any_rank(False, host),
+              "1-rank NCCL group: the host-side agreement does not hold")
         pstep = make_parallel_train_step(LR, GT, mesh, use_remat=False)
         zero_counts(mods)
-        par, par_ms, _, state = timed_steps(pstep, state, batches)
+        par, par_ms, state = timed_steps(pstep, state, batches)
         got = counts(mods)
         check(got["rasterize_counts"] == 2 * PARALLEL_ITERS and sum(got.values()) == got[
             "rasterize_counts"], f"1-rank NCCL step: launches {got}, expected 2 rasterizer "
@@ -1604,6 +1649,7 @@ def phase_parallel(dev, card: str) -> dict:
               f"warm-up, NCCL {par_ms}, single {plain_ms}); all-reduce of the "
               f"{bucket.numel() * 4 / 2**20:.2f} MiB bucket: device {nccl_ms:.4f} ms in "
               f"{nccl_n:.0f} NCCL kernels a call, {host_ms:.4f} ms a call by CUDA events; "
+              f"state broadcast and host-side agreement over a gloo group beside NCCL; "
               f"rasterizer launches {got['rasterize_counts']}; on {card}")
         del state, bucket
     finally:
@@ -1611,14 +1657,30 @@ def phase_parallel(dev, card: str) -> dict:
         for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
             os.environ.pop(k, None)
 
-    # (b) two ranks over gloo on this card, one row of the batch each
+    # (b) two ranks over gloo on this card, each a Trainer on one row of
+    # each node batch, against the single-device Trainer on the same loader
     torch.cuda.empty_cache()
     work = os.path.join(ROOT, "outputs", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
+        zero_counts(mods)
+        one, rec = dp_trainer(tmp, "one", dev)
+        one.train()
+        torch.cuda.synchronize()
+        check(rec["launches"] == [2] * DP_ITERS,
+              f"single-device Trainer: rasterizer launches a step {rec['launches']}")
+        totals["rasterize_counts"] += mods["rasterize"].launches
+        ref = np.asarray([float(m["train_loss"]) for m in rec["metrics"]])
+        ref_valid = one.valid_metrics.result()["valid_loss"]
+        ref_params = flat_params(one.state.model)
+        ev = rec["events"]
+        ref_ms = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+        del one, rec, ev
+        torch.cuda.empty_cache()
+
         outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
         sizes = dict(LR=LR, GT=GT, SCALE=SCALE, N_LR=N_LR, TRAIN_B=TRAIN_B, TRAIN_L=TRAIN_L,
-                     DEVICE=str(dev))
+                     DEVICE=str(dev), WORK=tmp)
         ctx = torch.multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_gloo_rank, args=(r, os.path.join(tmp, "store"), outs[r],
                                                       sizes)) for r in range(2)]
@@ -1642,25 +1704,48 @@ def phase_parallel(dev, card: str) -> dict:
         for out in outs:
             with np.load(out) as z:
                 ranks.append({k: z[k] for k in z.files})
+        save_dir = os.path.join(tmp, "models", "BMCNet_nfs", "dp")
+        saved = sorted(os.listdir(save_dir))
+        ckpt = latest_checkpoint(save_dir)
+        with open(os.path.join(ckpt, "trainer_meta.json")) as f:
+            ckpt_iter = json.load(f)["iteration"]
     a, b = ranks
     check(np.array_equal(a["params"], b["params"]), "the gloo ranks' parameters differ")
     check(np.array_equal(a["losses"], b["losses"]), "the gloo ranks' losses differ")
-    ref = np.asarray([m["train_loss"] for m in plain[:GLOO_ITERS]])
+    check(a["valid_loss"] == b["valid_loss"], "the gloo ranks' valid losses differ")
     rel = float(np.max(np.abs(a["losses"] / ref - 1)))
-    dparam = float(np.abs(a["params"] - snapshot).max())
-    check(rel <= 1e-5, f"gloo ranks' losses {a['losses']} vs single-device {ref}: rel {rel}")
+    rel_valid = abs(float(a["valid_loss"]) / ref_valid - 1)
+    dparam = float(np.abs(a["params"] - ref_params).max())
+    check(rel <= 1e-5, f"gloo ranks' losses {a['losses']} vs the single-device Trainer's "
+                       f"{ref}: rel {rel}")
+    check(rel_valid <= 1e-5, f"gloo ranks' valid loss {a['valid_loss']} vs {ref_valid}")
+    check(saved == ["best", "config.yml", "iteration_2"] and ckpt_iter == 2,
+          f"rank 0's checkpoints {saved}, the latest of iteration {ckpt_iter}")
+    n_valid = 2  # validation batches, one row each a rank
     for r, z in enumerate(ranks):
-        check(int(z["launches"]) == 2 * GLOO_ITERS,
-              f"gloo rank {r}: {int(z['launches'])} rasterizer launches in {GLOO_ITERS} iterations")
-        print(f"parallel (b) gloo rank {r} of 2 on one card, 1 row of the batch: "
-              f"{GLOO_ITERS} iterations at {', '.join(f'{v:.3f}' for v in z['ms'])} ms, peak "
-              f"memory {float(z['peak']) / 2**30:.2f} GiB, rasterizer launches "
-              f"{int(z['launches'])} (2 an iteration), all-reduce of the bucket through the "
-              f"host {', '.join(f'{v:.3f}' for v in z['reduce_ms'])} ms")
-    print(f"parallel (b): ranks' parameters and losses identical; losses {a['losses'].tolist()} "
-          f"against the single-device step's {ref.tolist()} on the whole batch, max rel |d| "
-          f"{rel:.2e} (rtol 1e-5); parameters max |d| {dparam:.3e}; {wall:.1f} s from spawn to "
-          f"join; on {card}")
+        check(z["step_launches"].tolist() == [2] * DP_ITERS,
+              f"gloo rank {r}: rasterizer launches a step {z['step_launches'].tolist()}")
+        check(int(z["launches"]) == 2 * (DP_ITERS + n_valid),
+              f"gloo rank {r}: {int(z['launches'])} rasterizer launches, expected "
+              f"{2 * (DP_ITERS + n_valid)}")
+        check(int(z["resume_start"]) == DP_ITERS and bool(z["resumed_same"]),
+              f"gloo rank {r}: resumed at {int(z['resume_start'])}, same parameters "
+              f"{bool(z['resumed_same'])}")
+        totals["rasterize_counts"] += int(z["launches"])
+        print(f"parallel (b) gloo rank {r} of 2 on one card, Trainer on 1 row of each node "
+              f"batch: {DP_ITERS} iterations, ms between their ends "
+              f"{', '.join(f'{v:.3f}' for v in z['ms'])}, peak memory "
+              f"{float(z['peak']) / 2**30:.2f} GiB, rasterizer launches {int(z['launches'])} "
+              f"(2 a step, 2 a validation batch), all-reduce of the bucket through the host "
+              f"{', '.join(f'{v:.3f}' for v in z['reduce_ms'])} ms; resumed from rank 0's "
+              f"checkpoint at iteration {int(z['resume_start'])}")
+    print(f"parallel (b): ranks' parameters, losses and valid loss identical; losses "
+          f"{a['losses'].tolist()} against the single-device Trainer's {ref.tolist()} on the "
+          f"whole batches, max rel |d| {rel:.2e} (rtol 1e-5); valid loss {float(a['valid_loss'])}"
+          f" against {ref_valid}, rel |d| {rel_valid:.2e} (rtol 1e-5); parameters max |d| "
+          f"{dparam:.3e}; single-device Trainer ms between iterations' ends "
+          f"{', '.join(f'{v:.3f}' for v in ref_ms)}; rank 0's checkpoints {saved}; "
+          f"{wall:.1f} s from spawn to join; on {card}")
 
     # (c) the engine's mesh of two on this card, 2 streams
     rng = np.random.default_rng(PARALLEL_SEED + 1)

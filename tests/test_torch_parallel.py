@@ -293,6 +293,40 @@ def test_trainer_runs_two_processes(h5, tmp_path):
     assert int(a["resume_start"]) == int(b["resume_start"]) == 4
 
 
+def test_trainer_splits_injected_node_batches_over_two_ranks(setup):
+    """2 ranks of one node, each handed the whole node batch of 4 clips by an
+    injected loader: the Trainer keeps its rank's rows, trains, validates
+    over unevenly valid rows and saves on rank 0, equal to the Trainer of
+    one process on the same loader."""
+    from bmcnet_esr_torch.training import Trainer
+    from bmcnet_esr_torch.training.config import RunConfig
+
+    work = setup[0]
+    a, b = spawn("node_batches", 2, work)
+    assert np.array_equal(a["losses"], b["losses"]) and len(a["losses"]) == 4
+    assert np.array_equal(a["params"], b["params"])
+    assert a["valid_loss"] == b["valid_loss"]
+    assert a["checkpoints"].tolist() == ["best", "config.yml", "iteration_3"]
+    assert a["rows"].tolist() == b["rows"].tolist() == [2] * 5  # 4 train, 1 valid batch
+
+    run = RunConfig(worker.trainer_config(str(work / "one"), ""), runid="one")
+    tr = Trainer(run, train_loader=worker.NodeBatchLoader(str(work), "train"),
+                 valid_loader=worker.NodeBatchLoader(str(work), "valid"), seed=0, device="cpu")
+    losses, step = [], tr.train_step
+
+    def recording(state, batch):
+        state, m = step(state, batch)
+        losses.append(float(m["train_loss"]))
+        return state, m
+
+    tr.train_step = recording
+    tr.train()
+    np.testing.assert_allclose(a["losses"], losses, rtol=1e-5)
+    assert float(a["valid_loss"]) == pytest.approx(tr.valid_metrics.result()["valid_loss"],
+                                                   rel=1e-5)
+    np.testing.assert_allclose(a["params"], worker.flat_params(tr.state.model), rtol=0, atol=1e-5)
+
+
 def test_trainer_refusals_inside_a_group(tmp_path):
     """dcn_slices that do not divide the world, data_parallel: false inside
     a group, and a node batch of 3 over 4 ranks raise ValueError."""
@@ -413,11 +447,20 @@ def test_engine_mesh_runs_a_tail_group_unsharded_with_one_warning(engines, h5, c
             (r["esr_mse"], r["bicubic_mse"]) for r in want]
 
 
-def test_engine_mesh_int8_pall_keeps_each_lane_scale(engines, h5):
+def test_engine_mesh_int8_pall_keeps_each_lane_scale(engines, h5, monkeypatch):
     """An int8_pall group of 4 streams on a mesh of 2: each replica
     calibrates its own lanes, as the unsharded batch does per lane."""
+    from bmcnet_esr_torch.inference import engine as engine_mod
     from bmcnet_esr_torch.models import act_scales
 
+    calibrated = []
+
+    def recording(model, pairs, carry, *args, **kwargs):
+        calibrated.append(pairs.shape[1])
+        return calibrate(model, pairs, carry, *args, **kwargs)
+
+    calibrate = engine_mod.calibrate_act_scales
+    monkeypatch.setattr(engine_mod, "calibrate_act_scales", recording)
     model, _, v, cfg = engines
     q = BMCNetPlain(scale=2, n_c=8, n_b=2, dtype=torch.bfloat16, quant="pall")
     q.load_state_dict(params_from_jax(v))
@@ -429,9 +472,56 @@ def test_engine_mesh_int8_pall_keeps_each_lane_scale(engines, h5):
     for got, ref in zip(sharded, plain):
         assert np.isfinite(got["esr_mse"])
         assert got["esr_mse"] == pytest.approx(ref["esr_mse"], rel=1e-5)
-    lanes = [next(iter(act_scales(sh.model).values())).shape[0]
-             for sh in sharded_eng._replicas]
-    assert lanes == [2, 2]
+    assert calibrated == [2, 2, 4]  # the two replicas, then the unsharded batch
+    assert {s.shape[0] for s in act_scales(q).values()} == {4}
+
+
+def test_engine_mesh_serves_what_the_caller_installs_after_construction(engines, h5):
+    """Weights changed and per-lane int8 scales installed on ``engine.model``
+    after the mesh engine was built reach every shard: each lane's scale is
+    cut to its shard, and the caller's scales stay as they were."""
+    from bmcnet_esr_torch.models import act_scales, set_act_scales
+
+    model, _, v, cfg = engines
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    m = BMCNetPlain(scale=2, n_c=8, n_b=2)
+    m.load_state_dict(params_from_jax(v))
+    eng = InferenceEngine(m, cfg, chunk_size=4, visualize=False, mesh=mesh, device="cpu")
+    with torch.no_grad():
+        for p in eng.model.parameters():
+            p.mul_(1.25)
+    want = InferenceEngine(eng.model, cfg, chunk_size=4, visualize=False,
+                           device="cpu").infer_file_batch(h5[:4])
+    got = eng.infer_file_batch(h5[:4])
+    assert [r["esr_mse"] for r in got] == [r["esr_mse"] for r in want]
+    assert got[0]["esr_mse"] != InferenceEngine(model, cfg, chunk_size=4, visualize=False,
+                                                device="cpu").infer_file_batch(h5[:1])[0][
+        "esr_mse"]
+
+    def int8():
+        q = BMCNetPlain(scale=2, n_c=8, n_b=2, dtype=torch.bfloat16, quant="pall")
+        q.load_state_dict(params_from_jax(v))
+        return q
+
+    solo = InferenceEngine(int8(), cfg, chunk_size=4, visualize=False, device="cpu")
+    want = solo.infer_file_batch(h5[:4])
+    scales = {k: s.clone() for k, s in act_scales(solo.model).items()}
+    assert {s.shape[0] for s in scales.values()} == {4}
+    eng = InferenceEngine(int8(), cfg, chunk_size=4, visualize=False, mesh=mesh, device="cpu")
+    set_act_scales(eng.model, scales)
+    got = eng.infer_file_batch(h5[:4])
+    for g, w in zip(got, want):
+        assert g["esr_mse"] == pytest.approx(w["esr_mse"], rel=1e-5)
+    kept = act_scales(eng.model)
+    assert all(torch.equal(kept[k], s) for k, s in scales.items())
+    # the scales an engine derived are no caller's: a second engine on the
+    # same model derives its own for its streams
+    shared = InferenceEngine(solo.model, cfg, chunk_size=4, visualize=False, mesh=mesh,
+                             device="cpu").infer_file_batch(h5[4:8])
+    fresh = InferenceEngine(int8(), cfg, chunk_size=4, visualize=False,
+                            device="cpu").infer_file_batch(h5[4:8])
+    for g, w in zip(shared, fresh):
+        assert g["esr_mse"] == pytest.approx(w["esr_mse"], rel=1e-5)
 
 
 def test_cli_infer_mesh_devices_on_the_cpu(h5, tmp_path):

@@ -160,6 +160,58 @@ def trainer(rank: int, world: int, work: str, datalist: str = "") -> dict:
             "checkpoints": np.asarray(ckpts), "resume_start": np.asarray(start)}
 
 
+class NodeBatchLoader:
+    """The whole node batches of ``<work>/<name>.npz`` (the test's batches of
+    4 clips), every epoch: a loader that does not split its batches."""
+
+    batch_size, inp_resolution, gt_resolution, seqn, compact = 4, LR, GT, 2, True
+
+    def __init__(self, work: str, name: str):
+        with np.load(os.path.join(work, f"{name}.npz")) as z:
+            n = len({k.split("/")[0] for k in z.files})
+            self.batches = [{k.split("/")[1]: z[k] for k in z.files if k.startswith(f"{i}/")}
+                            for i in range(n)]
+        self.pad_last = "clip_mask" in self.batches[0]
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def node_batches(rank: int, world: int, work: str) -> dict:
+    """The Trainer on injected node batches: it keeps this rank's rows of
+    each, 3 train batches over 4 iterations, one validation at iteration 2
+    over unevenly valid rows, rank 0's checkpoints."""
+    from bmcnet_esr_torch.training import Trainer
+    from bmcnet_esr_torch.training.config import RunConfig
+
+    run = RunConfig(trainer_config(os.path.join(work, "node"), ""), runid="node",
+                    make_dirs=rank == 0)
+    tr = Trainer(run, train_loader=NodeBatchLoader(work, "train"),
+                 valid_loader=NodeBatchLoader(work, "valid"), seed=0, device="cpu")
+    assert tr.mesh is not None and tr.mesh.size() == world, tr.mesh
+    losses, rows, step, evaluate = [], [], tr.train_step, tr.eval_step
+
+    def recording(state, batch):
+        rows.append(batch["inp_xy"].shape[0])
+        state, m = step(state, batch)
+        losses.append(float(m["train_loss"]))
+        return state, m
+
+    def evaluating(model, batch):
+        rows.append(batch["inp_xy"].shape[0])
+        return evaluate(model, batch)
+
+    tr.train_step, tr.eval_step = recording, evaluating
+    tr.train()
+    return {"losses": np.asarray(losses), "params": flat_params(tr.state.model),
+            "valid_loss": np.asarray(tr.valid_metrics.result()["valid_loss"]),
+            "checkpoints": np.asarray(sorted(os.listdir(run.save_dir))),
+            "rows": np.asarray(rows)}
+
+
 def refusals(rank: int, world: int, work: str) -> dict:
     """What a Trainer inside a group refuses, before any collective."""
     from bmcnet_esr_torch.training import Trainer
