@@ -16,7 +16,13 @@ counterpart of ``jax.distributed.initialize()``::
     torchrun --nnodes=1 --nproc_per_node=8 -m bmcnet_esr_torch.cli.train \
         -c configs/train_nfs.yml --distributed
 
-``batch_size`` is then each node's batch, split over its ranks.
+``batch_size`` is then each node's batch, split over its ranks.  The
+recipe's ``trainer.model_parallel: N`` adds tensor parallelism: the node's
+ranks form model groups of N that split each convolution's output channels
+and read the same rows of the batch (N must divide the ranks)::
+
+    torchrun --standalone --nproc_per_node=4 -m bmcnet_esr_torch.cli.train \
+        -c configs/train_nfs.yml --distributed -o 'trainer;model_parallel' 2
 """
 
 from __future__ import annotations

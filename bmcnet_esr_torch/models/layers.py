@@ -265,8 +265,7 @@ class ChannelLayerNorm(nn.Module):
 
     def __init__(self, features: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.eps = eps
-        self.dtype = dtype
+        self.features, self.eps, self.dtype = features, eps, dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -345,11 +344,13 @@ class BIE(nn.Module):
         return torch.bmm(_as_tokens(center).transpose(1, 2).float(), _as_tokens(v).float())
 
     def _mix(self, logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """Softmax of the logits, then each pixel of ``v`` mixed by it."""
-        b, c, h, w = v.shape
+        """Softmax of the logits, then each pixel of ``v`` mixed by it: one
+        output channel a row of the logits (a rank of the channel-parallel
+        forward holds some of the rows)."""
+        b, _, h, w = v.shape
         att = torch.softmax(logits * self.att_scale, dim=-1).to(self.dtype)
-        out = torch.bmm(_as_tokens(v), att.transpose(1, 2))  # [B, HW, C]
-        return out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        out = torch.bmm(_as_tokens(v), att.transpose(1, 2))  # [B, HW, rows]
+        return out.reshape(b, h, w, -1).permute(0, 3, 1, 2)
 
     def forward(
         self, x_1: torch.Tensor, x_2: torch.Tensor, x_s: torch.Tensor

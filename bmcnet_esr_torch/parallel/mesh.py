@@ -11,18 +11,22 @@ two uses of a mesh are kept apart:
 * **across processes** (training): one process per GPU, launched by
   ``torchrun``; :func:`init_distributed` joins the group from torchrun's
   environment and :func:`make_process_mesh` lays a
-  ``torch.distributed.device_mesh.DeviceMesh`` over the ranks, ``("data",)``
-  or, for a multi-slice (multi-node) deployment, ``("dcn_data", "data")``.
+  ``torch.distributed.device_mesh.DeviceMesh`` over the ranks, ``("data",)``,
+  ``("dcn_data", "data")`` for a multi-slice (multi-node) deployment, or
+  ``("data", "model")`` for tensor parallelism, where each convolution's
+  output channels are split over the ``model`` axis
+  (:func:`channel_sharding`, :func:`shard_tree_channels`, the forward in
+  ``parallel/tensor.py``).
 
 A torchrun node plays the part of a JAX host and its ranks the part of that
 host's devices: ``batch_size`` is the node's batch, split over the node's
-local ranks (:func:`shard_batch`, ``SequenceLoader(rows=...)``).
+ranks of the data axis (:func:`shard_batch`, ``SequenceLoader(rows=...)``);
+the ranks of one model group read the same rows.
 
 A mesh in one process also serves live streams: ``StreamPool(mesh=)``
 splits its slots over the devices, and ``StreamingSR(mesh=)`` splits one
 stream's rows (:func:`spatial_sharding`, the forward in
-``parallel/spatial.py``).  Channel (tensor) sharding raises: it is
-``model_parallel`` of ROADMAP.md Queue 1 item 8, not ported yet.
+``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -34,9 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
-MODEL_PARALLEL_TODO = ("is model_parallel of ROADMAP.md Queue 1 item 8, which is not ported "
-                       "yet")
 # torchrun's variables; MASTER_ADDR / MASTER_PORT unless an init_method is given
 _RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
 _STORE_ENV = ("MASTER_ADDR", "MASTER_PORT")
@@ -74,12 +77,15 @@ def make_mesh(n_data: Optional[int] = None, *, devices: Optional[Sequence] = Non
 
 @dataclasses.dataclass(frozen=True)
 class ProcessLayout:
-    """Where this process sits: its rank among all, its rank on its node."""
+    """Where this process sits: its rank among all, its rank on its node,
+    and the size of the model groups the node's ranks form (consecutive
+    ranks, data-major, as ``make_mesh_2d``'s ``reshape(n_data, n_model)``)."""
 
     rank: int
     world_size: int
     local_rank: int
     local_world_size: int
+    n_model: int = 1
 
     @property
     def node(self) -> int:
@@ -88,6 +94,16 @@ class ProcessLayout:
     @property
     def n_nodes(self) -> int:
         return self.world_size // self.local_world_size
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's share of the node batch: its coordinate on the data axis."""
+        return self.local_rank // self.n_model
+
+    @property
+    def data_size(self) -> int:
+        """The shares a node batch splits into: the node's data-axis ranks."""
+        return self.local_world_size // self.n_model
 
 
 def _env_int(name: str) -> int:
@@ -152,18 +168,28 @@ def init_distributed(device="cuda", *, backend: Optional[str] = None,
     return dev
 
 
-def make_process_mesh(n_slices: int = 1):
-    """``DeviceMesh`` over every rank: ``("data",)``, or ``(n_slices, world //
+def make_process_mesh(n_slices: int = 1, n_model: int = 1):
+    """``DeviceMesh`` over every rank: ``("data",)``; ``(n_slices, world //
     n_slices)`` over ``("dcn_data", "data")`` with the ranks slice-major, so
-    a slice is a node's ranks (``mesh.py:55-84``).  Its device type follows
-    the backend: ``cuda`` for NCCL, ``cpu`` for gloo (whose groups also carry
-    CUDA tensors, through host memory)."""
+    a slice is a node's ranks (``mesh.py:55-84``); or, with ``n_model > 1``,
+    ``(world // n_model, n_model)`` over ``("data", "model")`` with the
+    ranks data-major, so a model group is ``n_model`` consecutive ranks
+    (``make_mesh_2d``).  Its device type follows the backend: ``cuda`` for
+    NCCL, ``cpu`` for gloo (whose groups also carry CUDA tensors, through
+    host memory)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size()
     if n_slices < 1 or world % n_slices:
         raise ValueError(f"dcn_slices={n_slices} does not divide the world size {world}")
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"model_parallel={n_model} does not divide the world size {world}")
+    if n_slices > 1 and n_model > 1:
+        raise ValueError("dcn_slices and model_parallel cannot combine yet")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if n_model > 1:
+        return init_device_mesh(device_type, (world // n_model, n_model),
+                                mesh_dim_names=("data", "model"))
     if n_slices == 1:
         return init_device_mesh(device_type, (world,), mesh_dim_names=("data",))
     return init_device_mesh(device_type, (n_slices, world // n_slices),
@@ -210,12 +236,87 @@ def any_rank(flag: bool, group=None) -> bool:
     return bool(t.item())
 
 
-def channel_sharding(*_args, **_kwargs):
-    raise NotImplementedError(f"channel (tensor-parallel) sharding {MODEL_PARALLEL_TODO}")
+def splits(channels: int, n: int) -> bool:
+    """The channel rule: ``channels`` are cut into ``n`` equal slices when
+    ``n`` divides them (the JAX ``channel_sharding``'s trailing-dim rule)."""
+    return n > 1 and channels >= n and channels % n == 0
 
 
-def shard_tree_channels(*_args, **_kwargs):
-    raise NotImplementedError(f"channel (tensor-parallel) sharding {MODEL_PARALLEL_TODO}")
+def channel_sharding(model: nn.Module, n: int) -> Dict[str, object]:
+    """Each parameter's placement over an ``n``-way model axis
+    (``mesh.py:134-153``): ``Shard(0)`` for a convolution's weight (OIHW, so
+    output channels are dim 0, where JAX's HWIO has them last) and bias, and
+    for a ``ChannelLayerNorm``'s weight and bias, wherever ``n`` divides the
+    channels the module declares; ``Replicate()`` for anything else.  Read
+    from the declared sizes, so a model already cut to its slices gives the
+    same answer.  Adam's moments and the EMA follow their parameter."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from bmcnet_esr_torch.models.layers import ChannelLayerNorm
+
+    out = {}
+    for mname, m in model.named_modules():
+        channels = (m.out_channels if isinstance(m, nn.Conv2d) else
+                    m.features if isinstance(m, ChannelLayerNorm) else 0)
+        for pname, _ in m.named_parameters(recurse=False):
+            out[f"{mname}.{pname}" if mname else pname] = (
+                Shard(0) if splits(channels, n) else Replicate())
+    return out
+
+
+@torch.no_grad()
+def _map_split(state, n: int, fn) -> None:
+    """Replace each tensor of ``state`` that follows a split parameter by
+    ``fn(tensor)``: the parameter's data, its optimizer moments, its EMA."""
+    from torch.distributed.tensor import Shard
+
+    placements = channel_sharding(state.model, n)
+    for name, p in state.model.named_parameters():
+        if not isinstance(placements[name], Shard):
+            continue
+        p.data = fn(p.data)
+        slot = state.optimizer.state.get(p, {})
+        for key, value in slot.items():
+            if torch.is_tensor(value) and value.dim():  # not Adam's step count
+                slot[key] = fn(value)
+        if state.ema is not None:
+            state.ema[name] = fn(state.ema[name])
+
+
+def shard_tree_channels(state, mesh, axis: str = "model"):
+    """Cut a whole ``TrainState`` to this rank's slices of the ``axis`` of
+    ``mesh``, in place (``mesh.py:156-159``): of each split tensor, rank
+    ``r`` of ``n`` keeps rows ``[r*C/n, (r+1)*C/n)`` of dim 0 (the
+    parameters, Adam's ``exp_avg`` / ``exp_avg_sq`` / ``max_exp_avg_sq``,
+    the EMA).  The optimizer keeps its parameters' identity.  Returns
+    ``state``."""
+    from bmcnet_esr_torch.parallel.tensor import ChannelGroup
+
+    a = ChannelGroup.of(mesh, axis)
+    _map_split(state, a.n, lambda t: t.chunk(a.n)[a.rank].clone())
+    return state
+
+
+def gather_tree(state, mesh, axis: str = "model"):
+    """The inverse of :func:`shard_tree_channels`, in place on every rank of
+    the ``axis`` group (a collective): each split tensor whole again, in the
+    one-device layout (channels-last parameters stay channels-last), so a
+    checkpoint of it resumes on one device.  Returns ``state``."""
+    from bmcnet_esr_torch.parallel.tensor import ChannelGroup
+
+    a = ChannelGroup.of(mesh, axis)
+
+    def whole(t):
+        part = t.contiguous()
+        parts = [torch.empty_like(part) for _ in range(a.n)]
+        dist.all_gather(parts, part, group=a.group)
+        out = torch.cat(parts, 0)
+        if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
+            out = out.contiguous(memory_format=torch.channels_last)
+        return out
+
+    _map_split(state, a.n, whole)
+    return state
 
 
 @dataclasses.dataclass(frozen=True)

@@ -273,11 +273,13 @@ def fill_missing_grads(model: nn.Module) -> None:
 
 
 def apply_update(state: TrainState, total: Tensor, mse: Tensor, skip_nonfinite: bool,
-                 ema_decay: float) -> Dict[str, Any]:
+                 ema_decay: float, gnorm: Optional[Tensor] = None) -> Dict[str, Any]:
     """The optimizer update from the gradients in ``.grad``: the scheduled
-    learning rate, the non-finite guard on ``total`` and the gradient norm,
-    the EMA and the counts.  Returns the step's metrics."""
-    gnorm = global_norm(p.grad for p in state.model.parameters())
+    learning rate, the non-finite guard on ``total`` and the gradient norm
+    (``gnorm``, else the norm of ``.grad``), the EMA and the counts.
+    Returns the step's metrics."""
+    if gnorm is None:
+        gnorm = global_norm(p.grad for p in state.model.parameters())
     metrics: Dict[str, Any] = {"train_loss": total, "train_mse_loss": mse, "grad_norm": gnorm}
     apply = True
     if skip_nonfinite:

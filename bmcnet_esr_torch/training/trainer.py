@@ -33,11 +33,24 @@ SIGTERM stop is agreed by all ranks at an iteration boundary.  Two
 divergences from the JAX trainer: a node batch that its ranks do not divide
 raises (torchrun has fixed the rank count; JAX shrinks its data axis), and
 one process that sees several GPUs outside a group raises.
-``model_parallel > 1`` raises (ROADMAP.md Queue 1 item 8).
+
+Tensor parallelism (``trainer.py:256-330``): ``model_parallel: N`` lays the
+node's ``W`` ranks on a ``("data", "model")`` mesh of ``(W / N, N)``
+(``(1, N)`` with ``data_parallel: false``, which needs ``W == N``), model
+groups of ``N`` consecutive ranks.  The state is cut to each rank's channel
+slices (``parallel.shard_tree_channels``) and the steps run the
+channel-parallel forward; a batch splits by the data coordinate, so the
+ranks of a model group read the same rows.  An ``N`` that does not divide
+``W`` raises (outside a group ``W`` is 1); across more than one node ``N``
+is set to 1 with a warning, as JAX does under multi-host.  Checkpoints hold
+the whole state, gathered over the model group, in the one-device layout:
+a run under ``model_parallel`` resumes on one device and the other way
+round.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -52,13 +65,14 @@ import torch.distributed as dist
 from bmcnet_esr_torch.data import DatasetConfig, SequenceLoader, load_datalist
 from bmcnet_esr_torch.models import BMCNet, BMCNetPlain, count_params
 from bmcnet_esr_torch.parallel.mesh import (
-    MODEL_PARALLEL_TODO,
     any_rank,
+    gather_tree,
     host_group,
     make_process_mesh,
     process_layout,
     replicate_tree,
     shard_batch,
+    shard_tree_channels,
 )
 from bmcnet_esr_torch.training import checkpoint as ckpt_lib
 from bmcnet_esr_torch.training.config import RunConfig
@@ -102,11 +116,11 @@ def build_model(config: Dict[str, Any], scale: int, generator: Optional[torch.Ge
 def build_loader(dl_cfg: Dict[str, Any], *, seed: int = 0, pad_last: bool = False,
                  layout=None) -> SequenceLoader:
     """``layout`` (a ``parallel.ProcessLayout``) shards the clips over the
-    nodes and each batch over the node's ranks."""
+    nodes and each batch over the node's ranks of the data axis."""
     shard = {}
     if layout is not None:
         shard = dict(shard_index=layout.node, shard_count=layout.n_nodes,
-                     rows=(layout.local_rank, layout.local_world_size))
+                     rows=(layout.data_rank, layout.data_size))
     return SequenceLoader(
         load_datalist(dl_cfg["path_to_datalist_txt"]),
         DatasetConfig.from_dict(dl_cfg["dataset"]),
@@ -264,9 +278,11 @@ class Trainer:
                     "grad_accum > 1 is a single-device memory lever; the mesh already "
                     "splits the batch across ranks — ignoring it")
                 self.grad_accum = 1
-            self.mesh = make_process_mesh(int(tcfg.get("dcn_slices", 1)))
+            self.mesh = make_process_mesh(int(tcfg.get("dcn_slices", 1)), self.layout.n_model)
             self._host = host_group()
             replicate_tree(self.state)
+            if self._model_parallel:
+                shard_tree_channels(self.state, self.mesh)
             self.train_step = make_parallel_train_step(
                 self.inp_resolution, self.gt_resolution, self.mesh, self.seqn,
                 use_remat=self.use_remat, extra_losses=self.extra_losses,
@@ -276,7 +292,7 @@ class Trainer:
                 self.inp_resolution, self.gt_resolution, self.mesh, self.seqn,
                 extra_losses=self.extra_losses,
             )
-            self.logger.info(f"data parallel over {self.mesh.size()} ranks: "
+            self.logger.info(f"mesh over {self.mesh.size()} ranks: "
                              f"{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}")
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -288,26 +304,35 @@ class Trainer:
         self.valid_metrics = MetricTracker(["valid_mse_loss", "valid_loss"])
 
     def _parallel_layout(self, tcfg: Dict[str, Any]):
-        """This rank's ``ProcessLayout`` when the run is data parallel, else
-        ``None``; refuses what it cannot run rather than quietly train on one
-        device (``bmcnet_esr_tpu/training/trainer.py:255-315``)."""
+        """This rank's ``ProcessLayout`` when the run spans a process group,
+        else ``None``; refuses what it cannot run rather than quietly train
+        on one device (``bmcnet_esr_tpu/training/trainer.py:255-330``)."""
         n_slices = int(tcfg.get("dcn_slices", 1))
         n_model = int(tcfg.get("model_parallel", 1))
         if n_slices > 1 and n_model > 1:
             raise ValueError("dcn_slices and model_parallel cannot combine yet")
-        if n_model > 1:
-            raise NotImplementedError(f"trainer.model_parallel > 1: tensor parallelism "
-                                      f"{MODEL_PARALLEL_TODO}")
         world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        layout = process_layout() if world > 1 else None
+        if n_model > 1 and layout is not None and layout.n_nodes > 1:
+            self.logger.warning(
+                "model_parallel is a single-node layout knob; ignoring it across "
+                f"{layout.n_nodes} nodes (the data axis spans the nodes instead)")
+            n_model = 1
+        if n_model < 1 or world % n_model:
+            raise ValueError(f"model_parallel={n_model} does not divide the {world} available "
+                             "ranks: launch a multiple of it with torchrun --nproc_per_node "
+                             "... --distributed")
         use_dp = bool(tcfg.get("data_parallel", True)) and world > 1
         if n_slices > 1 and not use_dp:
             raise ValueError(
                 "dcn_slices > 1 requires data parallelism (data_parallel: true inside a "
                 "process group of more than one rank): the (dcn_data, data) mesh splits "
                 "the batch over both axes")
-        if world > 1 and not use_dp:
+        if world > 1 and not use_dp and world != n_model:
             raise ValueError(f"data_parallel: false inside a process group of {world} ranks: "
-                             "every rank would train alone; launch one process")
+                             "every rank would train alone; launch one process"
+                             + (f", or {n_model} for model_parallel={n_model}"
+                                if n_model > 1 else ""))
         if (world == 1 and tcfg.get("data_parallel", True) and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
             raise ValueError(
@@ -315,11 +340,11 @@ class Trainer:
                 "process: launch one process per GPU with torchrun --nproc_per_node="
                 f"{torch.cuda.device_count()} -m bmcnet_esr_torch.cli.train -c <recipe> "
                 "--distributed, or set trainer.data_parallel: false, or make one device visible")
-        if not use_dp:
+        if layout is None:
             return None
         if world % n_slices:
             raise ValueError(f"dcn_slices={n_slices} does not divide the world size {world}")
-        return process_layout()
+        return dataclasses.replace(layout, n_model=n_model)
 
     def _rank_rows(self, loader):
         """``(index, count)`` of the rows of each batch this rank takes from
@@ -328,11 +353,12 @@ class Trainer:
         yields node batches, which the node's ranks split here."""
         if loader is None or self.layout is None:
             return None
-        n, r = self.layout.local_world_size, self.layout.local_rank
+        n, r = self.layout.data_size, self.layout.data_rank
         if loader.batch_size % n:
             raise ValueError(
                 f"the node batch of {loader.batch_size} clips does not split over the "
-                f"node's {n} ranks: make batch_size a multiple of the ranks per node")
+                f"node's {n} ranks" + (" of the data axis" if self.layout.n_model > 1 else "")
+                + ": make batch_size a multiple of the ranks per node")
         own = (getattr(loader, "row_index", 0), getattr(loader, "row_count", 1))
         if own == (r, n):
             return None
@@ -344,12 +370,21 @@ class Trainer:
     # -- checkpointing -----------------------------------------------------
 
     def save(self, iteration: int, best: bool = False) -> Optional[str]:
-        """Rank 0 writes the checkpoint (``None`` elsewhere); every rank
-        waits for it at a barrier."""
+        """Rank 0 writes the checkpoint (``None`` elsewhere), the whole state
+        gathered over its model group; every rank waits for it at a
+        barrier."""
+        if self._model_parallel:
+            gather_tree(self.state, self.mesh)
         path = self._write_checkpoint(iteration, best) if self.is_writer else None
         if self.layout is not None:
             dist.barrier(group=self._host)
+        if self._model_parallel:
+            shard_tree_channels(self.state, self.mesh)
         return path
+
+    @property
+    def _model_parallel(self) -> bool:
+        return self.layout is not None and self.layout.n_model > 1
 
     def _write_checkpoint(self, iteration: int, best: bool) -> str:
         meta = {
@@ -364,7 +399,13 @@ class Trainer:
         return path
 
     def resume(self, path: str, reset: bool = False) -> int:
+        """Load the checkpoint at ``path`` (every rank reads it; under
+        ``model_parallel`` each keeps its slices of the whole state)."""
+        if self._model_parallel:
+            gather_tree(self.state, self.mesh)
         _, meta = ckpt_lib.restore_checkpoint(path, self.state)
+        if self._model_parallel:
+            shard_tree_channels(self.state, self.mesh)
         ckpt_exp = meta.get("experiment")
         if ckpt_exp and ckpt_exp != self.run.experiment:
             self.logger.warning(f"checkpoint experiment {ckpt_exp!r} != current "

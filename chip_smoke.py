@@ -95,7 +95,13 @@ failure:
    int8_pall on static and dynamic scales within rel-RMSE 5e-2),
    ``quant_conv3x3`` at the band shape, and the released checkpoint's
    golden through 4 bands, with launches and cross-band steps as the
-   model gives.
+   model gives; (f) tensor parallelism: two spawned gloo ranks on this card
+   run the ``Trainer`` with ``model_parallel: 2`` at full width, each
+   convolution's output channels split in two, against the one-device
+   steps (loss rel 1e-5, ``grad_norm`` rel 1e-4, parameters at atol 1e-5
+   but for a share bounded by ``TP_PARAM_SHARE``), with ms/iteration, the
+   collectives and bytes and peak memory of a rank, and checkpoints that
+   resume across the two layouts within rel 1e-5.
 
 Every kernel is called through its ``torch.library`` operator; the
 rasterizer's ``out=`` form through the operator's ``.into`` overload.  The
@@ -1442,6 +1448,15 @@ PARALLEL_ITERS = 3  # (a): the first iteration warms up, the other two are timed
 DP_ITERS = 3        # (b): Trainer iterations; iteration 2 validates and saves
 GLOO_JOIN_S = 300   # (b): the ranks must be done by then
 MESH_WINDOWS = 16   # (c): windows of each of the two streams
+TP_ITERS = 2        # (f): tensor-parallel steps from (a)'s state, and the Trainer's iterations
+# (f): the share of parameters that may lie beyond atol 1e-5 of the one-device
+# step's after TP_ITERS Adam steps.  Adam moves an element by up to lr a
+# step whatever its gradient's size, so where a gradient is small against
+# its rounding, two valid float32 implementations of one step part by up to
+# 2 * lr: part (f) prints how many elements the one-device step with cuDNN
+# off puts beyond atol 1e-5 (PERF.md, PR 10); atol 1e-5 on every element
+# holds for neither.
+TP_PARAM_SHARE = 1e-3
 PARALLEL_SEED = 11
 # (d): 8 slots over a mesh of 2 (cuda:0 twice), ticks with a reload before
 # SLOT_RELOAD, and the daemon's client windows; (e): one stream's 45 rows
@@ -1486,6 +1501,28 @@ def flat_params(model):
     import torch
 
     return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+
+
+def flat_grads(model, mesh=None):
+    """The gradients in parameter order; on a mesh with a ``model`` axis
+    each split one gathered whole (a collective)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from bmcnet_esr_torch.parallel import ChannelGroup, channel_sharding
+
+    axis = ChannelGroup.of(mesh) if mesh is not None else None
+    placements = channel_sharding(model, axis.n) if axis is not None else {}
+    out = []
+    for name, p in model.named_parameters():
+        g = p.grad.contiguous()
+        if isinstance(placements.get(name), Shard):
+            parts = [torch.empty_like(g) for _ in range(axis.n)]
+            dist.all_gather(parts, g, group=axis.group)
+            g = torch.cat(parts)
+        out.append(g.reshape(-1))
+    return torch.cat(out).cpu().numpy()
 
 
 def timed_steps(step, state, batches):
@@ -1597,8 +1634,9 @@ def phase_parallel(dev, card: str) -> dict:
     ``Trainer`` on the node batches, against the single-device ``Trainer``;
     (c) the engine's ``mesh=`` of two on this card, each shard against its
     stream's solo rollout bit for bit; (d) and (e), sharded serving
-    (:func:`parallel_slots`, :func:`parallel_rows`).  Returns each kernel's
-    launches in (a), (b) (both ranks), (c), (d) and (e)."""
+    (:func:`parallel_slots`, :func:`parallel_rows`); (f) tensor parallelism
+    (:func:`parallel_model`).  Returns each kernel's launches in (a), (b)
+    (both ranks), (c), (d), (e) and (f) (both ranks)."""
     import importlib
 
     import numpy as np
@@ -1635,9 +1673,16 @@ def phase_parallel(dev, card: str) -> dict:
         laps[name] = time.perf_counter() - mark[0]
         mark[0] = time.perf_counter()
 
-    # (a) the single-device step, then a 1-rank NCCL group's, from one state
-    plain, plain_ms, state = timed_steps(
-        make_train_step(LR, GT, use_remat=False), recipe_state(dev), batches)
+    # (a) the single-device step, then a 1-rank NCCL group's, from one state;
+    # (f) holds its tensor-parallel steps to the first TP_ITERS of these
+    one_step = make_train_step(LR, GT, use_remat=False)
+    plain, plain_ms, state = timed_steps(one_step, recipe_state(dev), batches[:1])
+    tp_ref = {"grad": flat_grads(state.model)}
+    more, more_ms, state = timed_steps(one_step, state, batches[1:TP_ITERS])
+    tp_ref.update(metrics=plain + more, params=flat_params(state.model))
+    plain, plain_ms = plain + more, plain_ms + more_ms
+    more, more_ms, state = timed_steps(one_step, state, batches[TP_ITERS:])
+    plain, plain_ms = plain + more, plain_ms + more_ms
     want = [p.detach().clone() for p in state.model.parameters()]
     del state
     torch.cuda.empty_cache()
@@ -1857,9 +1902,253 @@ def phase_parallel(dev, card: str) -> dict:
     lap("d")
     parallel_rows(dev, mods, totals, card)
     lap("e")
+    parallel_model(dev, mods, totals, card, tp_ref)
+    lap("f")
     print("parallel phase, s: " + ", ".join(f"({k}) {v:.1f}" for k, v in laps.items()))
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     return totals
+
+
+def tp_trainer(work: str, runid: str, dev, iterations: int, start: int = 0,
+               make_dirs: bool = True, **trainer):
+    """(f)'s ``Trainer``: the NFS recipe for ``iterations`` iterations on
+    in-memory batches, the first ``TP_ITERS`` of them (a)'s, from batch
+    ``start`` (a resumed run picks up where the uninterrupted one was), no
+    validation, a checkpoint at the end.  Returns the trainer and its steps'
+    device metrics."""
+    import numpy as np
+
+    from bmcnet_esr_torch.training import Trainer
+    from bmcnet_esr_torch.training.config import RunConfig
+
+    cfg = _recipe(work, iterations, 1000)
+    del cfg["valid_dataloader"]
+    cfg["trainer"].update(trainer)
+    data = train_batches(np.random.default_rng(PARALLEL_SEED), TP_ITERS + 1)
+    tr = Trainer(RunConfig(cfg, runid=runid, make_dirs=make_dirs),
+                 train_loader=MemoryLoader(data, start), seed=0, device=dev)
+    return tr, _recorded(tr)
+
+
+def _tp_rank(rank: int, store: str, out: str, sizes: dict) -> None:
+    """One of (f)'s two ranks, a spawned process: gloo on ``cuda:0``, the
+    ``Trainer`` with ``model_parallel: 2`` (a ``(data 1, model 2)`` mesh).
+    ``TP_ITERS`` iterations from (a)'s starting state on (a)'s batches, each
+    timed, the first one's collectives counted and its gradient gathered,
+    peak memory, the state gathered back, rank 0's checkpoint; then a run
+    that resumes the one-device checkpoint ``sizes["ONE_CKPT"]`` of
+    iteration ``TP_ITERS - 1`` for one more.  ``sizes`` carries the
+    parent's module constants into the child."""
+    globals().update(sizes)
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from bmcnet_esr_torch.kernels import rasterize
+    from bmcnet_esr_torch.parallel import channel_sharding, gather_tree, init_distributed, tensor
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
+    dev = init_distributed(sizes["DEVICE"], backend="gloo", init_method=f"file://{store}",
+                           timeout_s=GLOO_JOIN_S)
+    try:
+        tr, metrics = tp_trainer(WORK, "tp_first", dev, TP_ITERS, make_dirs=rank == 0,
+                                 model_parallel=2)
+        placements = channel_sharding(tr.state.model, 2)
+        rows = {n: p.shape[0] for n, p in tr.state.model.named_parameters()
+                if isinstance(placements[n], Shard) and n.endswith("weight")}
+        step, rec = tr.train_step, {"launches": [], "events": []}
+
+        def counted(state, batch):
+            before = rasterize.launches
+            state, m = step(state, batch)
+            rec["launches"].append(rasterize.launches - before)
+            rec["events"].append(torch.cuda.Event(enable_timing=True))
+            rec["events"][-1].record()
+            if "grad" not in rec:  # the first iteration's collectives and gradient
+                rec["coll"] = dict(tensor.collectives)
+                rec["bytes"] = dict(tensor.collective_bytes)
+                rec["grad"] = flat_grads(state.model, tr.mesh)
+            return state, m
+
+        tr.train_step = counted
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rasterize.launches = 0
+        tensor.collectives.clear()
+        tensor.collective_bytes.clear()
+        rec["events"].append(torch.cuda.Event(enable_timing=True))
+        rec["events"][-1].record()
+        tr.train()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ev = rec["events"]
+        params = flat_params(gather_tree(tr.state, tr.mesh).model)
+        del tr
+        torch.cuda.empty_cache()
+        tr, second = tp_trainer(WORK, "tp_second", dev, TP_ITERS + 1, start=TP_ITERS,
+                                make_dirs=rank == 0, model_parallel=2)
+        start = tr.resume(ONE_CKPT)
+        tr.train(start_iteration=start)
+        torch.cuda.synchronize(dev)
+        kinds = sorted(rec["coll"])
+        np.savez(out, losses=[float(m["train_loss"]) for m in metrics],
+                 gnorms=[float(m["grad_norm"]) for m in metrics], peak=peak, params=params,
+                 ms=[a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])], grad=rec["grad"],
+                 names=list(rows), rows=list(rows.values()), step_launches=rec["launches"],
+                 launches=rasterize.launches, kinds=kinds,
+                 coll=[rec["coll"][k] for k in kinds], coll_bytes=[rec["bytes"][k] for k in kinds],
+                 second=[float(m["train_loss"]) for m in second], start=start)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def parallel_model(dev, mods, totals: dict, card: str, ref: dict) -> None:
+    """(f) ``model_parallel``: two spawned ranks over gloo on this card (a
+    ``(data 1, model 2)`` mesh, the NFS recipe at full width, each
+    convolution's output channels split in two), :func:`_tp_rank`.  Their
+    steps against (a)'s one-device steps (``ref``): loss rel 1e-5 and
+    ``grad_norm`` rel 1e-4 (the JAX tensor-parallel test's bounds); the
+    gathered parameters at its atol 1e-5 on all but ``TP_PARAM_SHARE`` of
+    them, with beside it the same comparison for the one-device step with
+    cuDNN off (PyTorch's own convolutions), the spread of two valid float32
+    implementations of one step; the first step's gathered gradient against
+    one device's, beside the same for cuDNN off.  Then the ``Trainer`` with ``model_parallel: 2``
+    checkpointing for one device to resume and resuming one device's, both
+    against the uninterrupted one-device ``Trainer`` (rel 1e-5)."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.training import make_train_step
+    from bmcnet_esr_torch.training.checkpoint import latest_checkpoint
+
+    torch.backends.cudnn.enabled = False
+    try:
+        batches, step = parallel_batches(dev, TP_ITERS), make_train_step(LR, GT, use_remat=False)
+        _, _, state = timed_steps(step, recipe_state(dev), batches[:1])
+        native_grad = flat_grads(state.model)
+        _, _, state = timed_steps(step, state, batches[1:])
+        native = flat_params(state.model)
+    finally:
+        torch.backends.cudnn.enabled = True
+    del state, batches
+    work = os.path.join(ROOT, "outputs", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        zero_counts(mods)
+        whole, whole_m = tp_trainer(tmp, "one_whole", dev, TP_ITERS + 1)
+        whole.train()
+        one_first, _ = tp_trainer(tmp, "one_first", dev, TP_ITERS)
+        one_first.train()
+        one_ckpt = latest_checkpoint(one_first.run.save_dir)
+        del whole, one_first
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        outs = [os.path.join(tmp, f"tp{r}.npz") for r in range(2)]
+        sizes = dict(LR=LR, GT=GT, SCALE=SCALE, N_LR=N_LR, TRAIN_B=TRAIN_B, TRAIN_L=TRAIN_L,
+                     TP_ITERS=TP_ITERS, DEVICE=str(dev), WORK=tmp, ONE_CKPT=one_ckpt)
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_tp_rank, args=(r, os.path.join(tmp, "store"), outs[r],
+                                                    sizes)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(GLOO_JOIN_S - (time.perf_counter() - t0), 1))
+            check(not any(p.is_alive() for p in procs),
+                  f"tensor-parallel ranks still running after {GLOO_JOIN_S} s")
+            check(all(p.exitcode == 0 for p in procs),
+                  f"tensor-parallel ranks exited {[p.exitcode for p in procs]}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for out in outs:
+            with np.load(out) as z:
+                ranks.append({k: z[k] for k in z.files})
+        tp_dir = os.path.join(tmp, "models", "BMCNet_nfs", "tp_first")
+        saved = sorted(os.listdir(tp_dir))
+        resumed, resumed_m = tp_trainer(tmp, "one_second", dev, TP_ITERS + 1, start=TP_ITERS)
+        check(resumed.resume(latest_checkpoint(tp_dir)) == TP_ITERS,
+              f"the one-device Trainer does not resume the model_parallel checkpoint at "
+              f"{TP_ITERS}")
+        resumed.train(start_iteration=TP_ITERS)
+        torch.cuda.synchronize()
+        del resumed
+        torch.cuda.empty_cache()
+        parent = counts(mods)
+    whole_loss = np.asarray([float(m["train_loss"]) for m in whole_m])
+    want_loss = np.asarray([m["train_loss"] for m in ref["metrics"]])
+    want_gnorm = np.asarray([m["grad_norm"] for m in ref["metrics"]])
+    a, b = ranks
+    check(np.array_equal(a["losses"], b["losses"]) and np.array_equal(a["params"], b["params"]),
+          "the tensor-parallel ranks' losses or gathered parameters differ")
+    rel = float(np.max(np.abs(a["losses"] / want_loss - 1)))
+    rel_g = float(np.max(np.abs(a["gnorms"] / want_gnorm - 1)))
+    d_tp, d_native = (np.abs(p - ref["params"]) for p in (a["params"], native))
+    beyond, beyond_native = int(np.sum(d_tp > 1e-5)), int(np.sum(d_native > 1e-5))
+    d_grad = a["grad"] - ref["grad"]
+    rel_grad = float(np.linalg.norm(d_grad) / np.linalg.norm(ref["grad"]))
+    rel_grad_native = float(np.linalg.norm(native_grad - ref["grad"]) / np.linalg.norm(ref["grad"]))
+    check(rel <= 1e-5, f"tensor-parallel losses {a['losses']} vs one device's {want_loss}")
+    check(rel_g <= 1e-4, f"tensor-parallel grad norms {a['gnorms']} vs {want_gnorm}")
+    check(beyond <= TP_PARAM_SHARE * d_tp.size,
+          f"tensor-parallel parameters: {beyond} of {d_tp.size} beyond atol 1e-5 of one "
+          f"device's (max |d| {d_tp.max():.3e}); the one-device step with cuDNN off: "
+          f"{beyond_native} (max |d| {d_native.max():.3e})")
+    n_c = nfs_recipe()["model"]["args"]["n_c"]
+    for r, z in enumerate(ranks):
+        split = dict(zip(z["names"].tolist(), z["rows"].tolist()))
+        n_c_rows = {v for k, v in split.items() if "conv_o" not in k}
+        check(n_c_rows == {n_c // 2} and split["neuro.conv_o.weight"] == SCALE**2,
+              f"rank {r}: split convolutions hold {sorted(set(split.values()))} output channels")
+        check(z["step_launches"].tolist() == [2] * TP_ITERS,
+              f"rank {r}: rasterizer launches a step {z['step_launches'].tolist()}")
+        check(int(z["launches"]) == 2 * (TP_ITERS + 1),
+              f"rank {r}: {int(z['launches'])} rasterizer launches, expected "
+              f"{2 * (TP_ITERS + 1)}")
+        totals["rasterize_counts"] += int(z["launches"])
+    rel_back = abs(float(resumed_m[0]["train_loss"]) / whole_loss[TP_ITERS] - 1)
+    rel_in = float(np.max(np.abs(a["second"] / whole_loss[TP_ITERS:] - 1)))
+    check(saved == ["config.yml", f"iteration_{TP_ITERS - 1}"],
+          f"rank 0's model_parallel checkpoints {saved}")
+    check(int(a["start"]) == TP_ITERS and len(a["second"]) == 1,
+          f"ranks resumed at {int(a['start'])}")
+    check(max(rel_back, rel_in) <= 1e-5,
+          f"Trainer losses against the uninterrupted one-device run {whole_loss}: one device "
+          f"resuming model_parallel's checkpoint {float(resumed_m[0]['train_loss'])}, "
+          f"model_parallel resuming one device's {a['second']}")
+    check(parent["rasterize_counts"] == 2 * (2 * TP_ITERS + 2),
+          f"(f) one-device Trainers: rasterizer launches {parent}")
+    for k, v in parent.items():
+        totals[k] += v
+    per = ", ".join(f"{k} {c:.0f} ({by / 2**20:.1f} MiB)" for k, c, by in
+                    zip(a["kinds"].tolist(), a["coll"], a["coll_bytes"]))
+    for r, z in enumerate(ranks):
+        print(f"parallel (f) tensor-parallel rank {r} of 2 on one card, (data 1, model 2), NFS "
+              f"recipe full width, batch {TRAIN_B}: ms/iteration "
+              f"{', '.join(f'{v:.3f}' for v in z['ms'])}; peak memory "
+              f"{float(z['peak']) / 2**30:.2f} GiB; rasterizer launches a step "
+              f"{z['step_launches'].tolist()}")
+    print(f"parallel (f): model-axis collectives a rank an iteration: {per}; losses "
+          f"{a['losses'].tolist()} against one device's {want_loss.tolist()}, max rel |d| "
+          f"{rel:.2e} (rtol 1e-5); grad norms max rel |d| {rel_g:.2e} (rtol 1e-4); first "
+          f"step's gathered gradient ||d||/||g|| {rel_grad:.3e}, max |d| "
+          f"{np.abs(d_grad).max():.3e} of max |g| {np.abs(ref['grad']).max():.3e} (the "
+          f"one-device step with cuDNN off: ||d||/||g|| {rel_grad_native:.3e}); gathered "
+          f"parameters after {TP_ITERS} steps max |d| {d_tp.max():.3e}, {beyond} of "
+          f"{d_tp.size} beyond atol 1e-5 (at most {TP_PARAM_SHARE:.0e} of them); the "
+          f"one-device step with cuDNN off against it max |d| {d_native.max():.3e}, "
+          f"{beyond_native} beyond; split convolutions hold {n_c // 2} of "
+          f"{n_c} output channels (conv_o {SCALE**2} of {2 * SCALE**2}); one device resuming "
+          f"model_parallel's checkpoint for iteration {TP_ITERS} rel {rel_back:.2e}, "
+          f"model_parallel resuming one device's rel {rel_in:.2e}, against the uninterrupted "
+          f"one-device run {whole_loss.tolist()} (rtol 1e-5); rank 0's checkpoints {saved}; "
+          f"{wall:.1f} s from spawn to join; on {card}")
 
 
 def parallel_slots(dev, mods, totals: dict, card: str) -> None:
@@ -3032,8 +3321,8 @@ def main(argv=None) -> int:
           f"{train_launches['rasterize_counts']} on the training path, "
           f"{serve_launches['rasterize_counts']} on the serving path, "
           f"{export_launches['rasterize_counts']} through serving bundles, "
-          f"{parallel_launches['rasterize_counts']} on the parallel paths (data parallelism and "
-          f"sharded serving); int8 kernels on "
+          f"{parallel_launches['rasterize_counts']} on the parallel paths (data and tensor "
+          f"parallelism, sharded serving); int8 kernels on "
           f"the serving path: "
           f"{ {k: v for k, v in serve_launches.items() if k != 'rasterize_counts'} }"
           f", through bundles: "

@@ -67,14 +67,27 @@ def _few_torch_threads():
 
 def spawn(fn, world, work, local_world=None, **kwargs):
     """Run ``worker.<fn>`` on ``world`` gloo ranks; their npz results by rank."""
+    return join(launch(fn, world, work, local_world, **kwargs))
+
+
+def launch(fn, world, work, local_world=None, tag="", **kwargs):
+    """Start ``worker.<fn>`` on ``world`` gloo ranks (``tag`` names their
+    store and results apart from another launch's); :func:`join` waits."""
     ctx = multiprocessing.get_context("spawn")
-    store = os.path.join(work, f"store-{fn}-{world}")
-    outs = [os.path.join(work, f"{fn}-{world}-{r}.npz") for r in range(world)]
+    store = os.path.join(work, f"store-{fn}{tag}-{world}")
+    outs = [os.path.join(work, f"{fn}{tag}-{world}-{r}.npz") for r in range(world)]
     procs = [ctx.Process(target=worker.main, args=(fn, r, world, local_world or world, store,
                                                    str(work), outs[r], kwargs))
              for r in range(world)]
     for p in procs:
         p.start()
+    return fn, procs, outs
+
+
+def join(launched):
+    """The npz results by rank of a :func:`launch`, its ranks joined within
+    ``JOIN_S`` each (then killed, and the test fails)."""
+    fn, procs, outs = launched
     try:
         for p in procs:
             p.join(JOIN_S)

@@ -596,7 +596,9 @@ def test_trainer_sets_deterministic_cudnn(h5, tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_what_it_cannot_run(h5, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # outside a group the one rank does not divide the degree (the JAX
+    # trainer's "does not divide the 1 available devices")
+    with pytest.raises(ValueError, match="model_parallel"):
         _trainer(h5, tmp_path, "model_parallel", model_parallel=2)
     # one process: a multi-slice recipe never silently trains on one device
     with pytest.raises(ValueError, match="requires data parallelism"):
