@@ -40,7 +40,7 @@ import torch
 
 import bmcnet_esr_torch.kernels  # noqa: F401  the operators a program calls
 from bmcnet_esr_torch.ops.batch import batch_events_to_counts, pad_window
-from bmcnet_esr_torch.utils.device import resolve_device
+from bmcnet_esr_torch.utils.device import resolve_device, strict_fp32
 
 STEP_FILE, META_FILE = "step.pt2", "meta.json"
 
@@ -89,6 +89,7 @@ def export_serving_bundle(
     from bmcnet_esr_torch.models.quant import act_scales, frozen_weights
 
     dev = resolve_device(device)
+    strict_fp32()
     model = model.to(dev, memory_format=torch.channels_last).eval()
     if variables is not None:
         _apply_state(model, variables)
@@ -148,6 +149,7 @@ class ExportedStream:
         if resolve_device(device).type != self.device.type:
             raise ValueError(f"the bundle was exported on {self.meta['device']} and runs "
                              f"there only, not on {device}: export where you serve")
+        strict_fp32()  # the program's float32 convolutions, whatever this process set
         self._step = torch.export.load(os.path.join(bundle_dir, STEP_FILE)).module()
         self._batch = int(self.meta["batch"])
         self._res = tuple(self.meta["inp_resolution"])

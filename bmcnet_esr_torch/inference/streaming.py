@@ -66,7 +66,7 @@ from bmcnet_esr_torch.ops.batch import (
 )
 from bmcnet_esr_torch.parallel.mesh import spatial_sharding
 from bmcnet_esr_torch.parallel.spatial import RowBandForward
-from bmcnet_esr_torch.utils import resolve_device
+from bmcnet_esr_torch.utils import resolve_device, strict_fp32
 
 #: Prediction wire encodings for :class:`StreamPool` (``out_wire=``), as in
 #: the JAX package: ``"f32"`` the model's own output dtype (bfloat16 widens
@@ -343,6 +343,7 @@ class StreamingSR:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        strict_fp32()
         self.inp_resolution = tuple(inp_resolution)
         self.window_size = window_size
         self._rows = self._bands = None
@@ -490,6 +491,7 @@ class StreamPool:
                 f"fetch_chunks ({fetch_chunks}) must be >= 1 and divide slots ({self.slots})"
             )
         self.device = resolve_device(device)
+        strict_fp32()
         self.mesh = mesh
         devices = [self.device]
         if mesh is not None:

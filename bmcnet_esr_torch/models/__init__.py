@@ -7,6 +7,7 @@ from bmcnet_esr_torch.models.convert import (
     convert_torch_state_dict,
     count_params,
     load_checkpoint,
+    lpips_params_from_jax,
     params_from_jax,
 )
 from bmcnet_esr_torch.models.layers import (
@@ -29,8 +30,8 @@ from bmcnet_esr_torch.models.quant import (
 
 __all__ = [
     "BMCNet", "BMCNetPlain", "act_scales_from_jax", "convert_torch_state_dict",
-    "count_params", "load_checkpoint", "params_from_jax", "BIE", "CHAIN_MODES",
-    "QUANT_MODES", "ChannelLayerNorm", "ParallelBlk", "QuantConv", "ResidualBlock",
+    "count_params", "load_checkpoint", "lpips_params_from_jax", "params_from_jax", "BIE",
+    "CHAIN_MODES", "QUANT_MODES", "ChannelLayerNorm", "ParallelBlk", "QuantConv", "ResidualBlock",
     "CALIB_QUANTILES", "act_scales", "calibrate_act_scales", "calibrate_from_h5", "quant_convs",
     "set_act_scales",
 ]

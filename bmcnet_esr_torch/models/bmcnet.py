@@ -125,8 +125,9 @@ class _Model(nn.Module):
 
     def __init__(self, scale: int, n_c: int, n_b: int, repeat: int, dtype, quant):
         super().__init__()
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            # float64 is a reference for measuring float32's round-off
+            raise ValueError(f"dtype must be float32 or bfloat16 (or float64), got {dtype}")
         quant_mode(quant)  # an unknown mode raises here
         self.scale, self.n_c, self.n_b, self.repeat, self.dtype = scale, n_c, n_b, repeat, dtype
         self.quant = quant

@@ -106,6 +106,19 @@ def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def lpips_params_from_jax(params: Mapping) -> Dict:
+    """The JAX ``LPIPSTrainer.params`` (``lins``, ``logit`` and, with
+    ``pnet_tune``, ``backbone``; leaves as arrays) -> numpy in the same
+    layout, for :meth:`LPIPSTrainer.load_params`."""
+    out: Dict = {
+        "lins": [np.array(w, np.float32) for w in params["lins"]],
+        "logit": {k: np.array(v, np.float32) for k, v in params["logit"].items()},
+    }
+    if "backbone" in params:
+        out["backbone"] = {k: np.array(v, np.float32) for k, v in params["backbone"].items()}
+    return out
+
+
 def act_scales_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX package's ``quant`` collection (``act_scale`` leaves of shape
     ``[B, 1, 1, 1]``, ``[1, 1, 1, 1]`` or ``()``) -> per-lane scales by the

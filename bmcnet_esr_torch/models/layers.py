@@ -270,9 +270,9 @@ class ChannelLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         mu = x32.mean(1, keepdim=True)
-        if self.dtype == torch.float32:
+        if self.dtype != torch.bfloat16:
             var = (x32 - mu).square().mean(1, keepdim=True)
         else:
             var = torch.clamp(x32.square().mean(1, keepdim=True) - mu.square(), min=0.0)
@@ -341,7 +341,8 @@ class BIE(nn.Module):
         """``[B, C, C]`` float32 logits, a sum over the pixels (so the sum of
         the logits of row bands is the image's), in float32 even on the bf16
         path."""
-        return torch.bmm(_as_tokens(center).transpose(1, 2).float(), _as_tokens(v).float())
+        wide = torch.promote_types(v.dtype, torch.float32)
+        return torch.bmm(_as_tokens(center).transpose(1, 2).to(wide), _as_tokens(v).to(wide))
 
     def _mix(self, logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """Softmax of the logits, then each pixel of ``v`` mixed by it: one

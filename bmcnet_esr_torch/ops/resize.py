@@ -81,13 +81,13 @@ def _resize(x: torch.Tensor, out_hw: Tuple[int, int], mode: str, channel_last: b
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     if channel_last:  # [..., H, W, C]
         *lead, in_h, in_w, c = x.shape
-        my = _matrix_for(in_h, out_h, mode, x.device)
-        mx = _matrix_for(in_w, out_w, mode, x.device)
+        my = _matrix_for(in_h, out_h, mode, x.device).to(x.dtype)
+        mx = _matrix_for(in_w, out_w, mode, x.device).to(x.dtype)
         y = torch.matmul(my, x.reshape(*lead, in_h, in_w * c)).reshape(*lead, out_h, in_w, c)
         return torch.matmul(mx, y)  # [P, W] @ [..., O, W, C] -> [..., O, P, C]
     in_h, in_w = x.shape[-2], x.shape[-1]
-    my = _matrix_for(in_h, out_h, mode, x.device)
-    mx = _matrix_for(in_w, out_w, mode, x.device)
+    my = _matrix_for(in_h, out_h, mode, x.device).to(x.dtype)
+    mx = _matrix_for(in_w, out_w, mode, x.device).to(x.dtype)
     return torch.matmul(torch.matmul(my, x), mx.T)
 
 

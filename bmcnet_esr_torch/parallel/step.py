@@ -58,6 +58,7 @@ from bmcnet_esr_torch.training.train_step import (
     fill_missing_grads,
     sequence_loss,
 )
+from bmcnet_esr_torch.utils.device import strict_fp32
 
 Tensor = torch.Tensor
 
@@ -137,6 +138,7 @@ def make_parallel_train_step(
     global batch; ``mesh`` is a ``DeviceMesh`` (:func:`make_process_mesh`).
     The state is updated in place and stays equal on every rank of the data
     axes; on a mesh with a ``model`` axis it is the rank's channel slices."""
+    strict_fp32()
     axis = ChannelGroup.of(mesh)
 
     def step(state: TrainState, batch: Dict[str, Tensor]):
@@ -145,7 +147,8 @@ def make_parallel_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():
             total, aux = sequence_loss(_forward(model, axis), batch, inp_resolution,
-                                       gt_resolution, seqn, use_remat, extra_losses)
+                                       gt_resolution, seqn, use_remat, extra_losses,
+                                       batch_scale=_data_size(mesh))
             total.backward()
         fill_missing_grads(model)
         grads = [p.grad for p in model.parameters()]
@@ -167,12 +170,13 @@ def make_parallel_eval_step(
     """Validation on this rank's rows (the model cut to the rank's channel
     slices on a mesh with a ``model`` axis); the metrics are the global
     batch's."""
+    strict_fp32()
     terms = _normalized(extra_losses)
     axis = ChannelGroup.of(mesh)
 
     def step(model: torch.nn.Module, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         sums = eval_sums(_forward(model, axis), batch, inp_resolution, gt_resolution, seqn,
-                         terms)
+                         terms, batch_scale=_data_size(mesh))
         return eval_metrics(all_reduce_sum(sums.to(torch.float32), mesh))
 
     return step

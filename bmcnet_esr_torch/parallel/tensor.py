@@ -312,13 +312,13 @@ class ChannelParallelForward(nn.Module):
         summed over the ranks (one all-reduce for every ``x`` a pass)."""
         if not self.split:
             return [m(x) for x in xs]
-        x32 = [x.float() for x in xs]
+        x32 = [x.to(torch.promote_types(x.dtype, torch.float32)) for x in xs]
         k = len(xs)
 
         def total(parts):  # [B, k*j, H, W] channel sums of every rank, split per x
             return sum_ranks(torch.cat(parts, 1), self.axis).div(m.features).chunk(k, 1)
 
-        if m.dtype == torch.float32:
+        if m.dtype != torch.bfloat16:
             mus = total([x.sum(1, keepdim=True) for x in x32])
             var = total([(x - mu).square().sum(1, keepdim=True) for x, mu in zip(x32, mus)])
         else:

@@ -6,7 +6,8 @@ is one jitted XLA program.  Here it is eager PyTorch on the device:
   padded event windows [B, L, ...] --(one rasterizer launch per prefix)-->
   count frames [B, L, H, W, 2] --(sliding pairs, a Python loop over
   S = L - seqn + 1 steps)--> per-step MSE against the second window's GT
-  counts (``gt_cnt[:, 1]``, ``train.py:213``) --(autograd)--> gradients
+  counts (``gt_cnt[:, 1]``, ``train.py:213``), plus the ``loss:`` block's
+  terms (``training/losses.py``) --(autograd)--> gradients
   --> ``optimizer.step()``
 
 ``use_remat`` wraps each step's body (model + losses) in
@@ -15,7 +16,9 @@ of ``jax.checkpoint`` on the scan body.  The loss is the sum over steps of
 the batch mean (``train.py:227-234``); the bicubic fit-up applies when the
 prediction and GT resolutions differ (``train.py:228``).  The JAX package
 has no backward Pallas kernel, so the gradients come from autograd through
-cuDNN / cuBLAS; the rasterizer runs only forward, on data.
+cuDNN / cuBLAS; the rasterizer runs only forward, on data.  A term marked
+``needs_events`` gets the step's raw window and its valid count in ``aux``
+(raw batches only: the compact form drops timestamps).
 
 Unlike a jitted step, a torch optimizer updates in place, so the non-finite
 guard (``skip_nonfinite``) decides on the host *before* ``optimizer.step()``
@@ -37,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from bmcnet_esr_torch.ops.batch import counts_from_batch, sliding_pairs
 from bmcnet_esr_torch.ops.resize import resize_bicubic
 from bmcnet_esr_torch.training.losses import adapt_term, needs_events
+from bmcnet_esr_torch.utils.device import strict_fp32
 
 Tensor = torch.Tensor
 
@@ -121,11 +125,20 @@ def _rollout_losses(
     extra_losses: Tuple = (),
     inp_events: Optional[Tensor] = None,  # [B, L, 4, N] raw, for event-consuming terms
     inp_lens: Optional[Tensor] = None,  # [B, L] valid counts of the padded windows
+    batch_scale: float = 1.0,
 ) -> Tuple[Tensor, Tensor]:
     """Per-step per-clip ``(MSE, total)`` over the recurrent unroll: two
     ``[S, B]`` tensors.  ``extra_losses`` are ``(name, weight, fn)`` with
     ``fn(pred_fit, gt, aux) -> scalar``; the per-step total is
-    ``mse + sum(w * fn(...))``."""
+    ``mse + sum(w * fn(...))``.  ``aux`` holds the raw prediction
+    (``pred``), the previous step's output (``prev_pred``), the step's
+    input pair (``inp``) and index (``step``), and with ``inp_events`` the
+    step's raw window (``events``, the pair's second window) and, with
+    ``inp_lens``, its valid event count (``events_len``); the contract of
+    ``bmcnet_esr_torch/losses/terms.py``.  A term marked ``batch_sum`` (a
+    sum over the batch's clips, not a mean) is multiplied by
+    ``batch_scale``: the data-parallel step passes its data axis's size, so
+    that the ranks' mean is the whole batch's sum."""
     b, _, h, w, _ = inp_frames.shape
     pairs = sliding_pairs(inp_frames, seqn)  # [B, S, seqn, H, W, 2]
     s = pairs.shape[1]
@@ -146,6 +159,8 @@ def _rollout_losses(
                 if events_len is not None:
                     aux["events_len"] = events_len
             for _, weight, fn in extra_losses:
+                if getattr(fn, "batch_sum", False):
+                    weight = weight * batch_scale
                 total = total + weight * fn(pred_fit, gt, aux)  # scalar, broadcast
         return (*outs, mse, total)
 
@@ -195,16 +210,18 @@ def sequence_loss(
     seqn: int = 2,
     use_remat: bool = True,
     extra_losses: Tuple = (),
+    batch_scale: float = 1.0,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Total BPTT loss of one batch of clips (raw ``{inp,gt}_events`` or the
-    compact ``{inp,gt}_{xy,p}``) and the reference's log metrics."""
+    compact ``{inp,gt}_{xy,p}``) and the reference's log metrics
+    (``batch_scale``: :func:`_rollout_losses`)."""
     extra_losses = _normalized(extra_losses)
     inp_frames = counts_from_batch(batch, "inp", tuple(inp_resolution))
     gt_frames = counts_from_batch(batch, "gt", tuple(gt_resolution))
     inp_events, inp_lens = _events_for_terms(batch, extra_losses)
     mses, totals = _rollout_losses(
         model, inp_frames, gt_frames, seqn, gt_resolution, use_remat, extra_losses,
-        inp_events=inp_events, inp_lens=inp_lens,
+        inp_events=inp_events, inp_lens=inp_lens, batch_scale=batch_scale,
     )  # [S, B] each
     total = totals.mean(dim=1).sum()
     return total, {"mse_loss": mses[-1].mean(), "loss": total}
@@ -229,6 +246,7 @@ def make_train_step(
     as the mean of the micro-batch losses.  ``ema_decay > 0`` keeps the EMA
     of the parameters; it moves on a skipped step too, towards the unchanged
     parameters, as in the JAX step."""
+    strict_fp32()
 
     def batch_loss(model, batch):
         return sequence_loss(model, batch, inp_resolution, gt_resolution, seqn, use_remat,
@@ -309,6 +327,7 @@ def make_eval_step(
     clips of the final batch count for nothing in the MSE terms.  Extra terms
     return batch-mean scalars by contract, so their part of ``valid_loss``
     still includes the padded clips (as in the JAX package)."""
+    strict_fp32()
     terms = _normalized(extra_losses)
 
     def step(model: nn.Module, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
@@ -319,17 +338,18 @@ def make_eval_step(
 
 @torch.no_grad()
 def eval_sums(model: nn.Module, batch: Dict[str, Tensor], inp_resolution, gt_resolution,
-              seqn: int, terms: Tuple) -> Tensor:
+              seqn: int, terms: Tuple, batch_scale: float = 1.0) -> Tensor:
     """``[S + 2]``: per step the ``clip_mask``-weighted sum over the clips of
     the total loss, then that of the last step's MSE, then the weights' sum.
-    Sums over several batches' clips add (the data-parallel eval step)."""
+    Sums over several batches' clips add (the data-parallel eval step, which
+    passes its data axis's size as ``batch_scale``)."""
     model.eval()
     inp_frames = counts_from_batch(batch, "inp", tuple(inp_resolution))
     gt_frames = counts_from_batch(batch, "gt", tuple(gt_resolution))
     inp_events, inp_lens = _events_for_terms(batch, terms)
     mses, totals = _rollout_losses(
         model, inp_frames, gt_frames, seqn, gt_resolution, False, terms,
-        inp_events=inp_events, inp_lens=inp_lens,
+        inp_events=inp_events, inp_lens=inp_lens, batch_scale=batch_scale,
     )  # [S, B]
     w = batch.get("clip_mask")
     if w is None:

@@ -600,6 +600,46 @@ def test_bundle_on_cuda_equals_streaming_sr(cuda, dtype, tmp_path):
         np.testing.assert_array_equal(got[0], want, err_msg=f"window {i}")
 
 
+
+def test_float32_bundle_in_a_fresh_process_equals_streaming_sr(cuda, tmp_path):
+    """A consumer process that imports no model code and starts with TF32 on
+    serves a float32 bundle bit for bit as ``StreamingSR`` does here:
+    ``ExportedStream`` sets the float32 policy itself."""
+    import subprocess
+    import sys
+
+    from bmcnet_esr_torch.inference import StreamingSR, export_serving_bundle
+
+    hw, n = (12, 16), 256
+    m = BMCNet(scale=2, n_c=16, n_b=2, generator=torch.Generator().manual_seed(0))
+    m = m.to(cuda, memory_format=torch.channels_last).eval()
+    path = export_serving_bundle(m, None, str(tmp_path / "f32"), hw, n, device=cuda)
+    windows = _events(5, 4, n, hw)
+    np.save(tmp_path / "windows.npy", windows)
+    code = (
+        "import sys, numpy as np, torch\n"
+        "torch.backends.cudnn.allow_tf32 = True\n"
+        "torch.backends.cuda.matmul.allow_tf32 = True\n"
+        "from bmcnet_esr_torch.inference.export import ExportedStream\n"
+        f"s = ExportedStream({path!r}, device='cuda')\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        f"wins = np.load({str(tmp_path / 'windows.npy')!r})\n"
+        "preds = [s.push(w) for w in wins]\n"
+        f"np.save({str(tmp_path / 'preds.npy')!r}, np.stack([p[0] for p in preds[1:]]))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'bmcnet_esr_tpu')\n"
+        "             or m.startswith('bmcnet_esr_torch.models'))\n"
+        "print('BAD', bad)\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=repo), cwd=repo, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout
+    live = StreamingSR(m, None, hw, n, device=cuda)
+    want = [live.push(ev) for ev in windows][1:]
+    np.testing.assert_array_equal(np.load(tmp_path / "preds.npy"), np.stack(want))
+
+
 # -- data parallelism on the card ---------------------------------------------
 
 

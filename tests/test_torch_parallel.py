@@ -125,6 +125,23 @@ def random_batch(rng, empty_gt_clip=None):
     return out
 
 
+def raw_batch(rng):
+    """A raw batch (``{inp,gt}_events`` and the valid counts ``inp_len``) of
+    B clips x L windows, the input windows zero-padded after 48 events."""
+    out = {}
+    for prefix, hw, n in (("inp", worker.LR, 64), ("gt", worker.GT, 256)):
+        ev = np.zeros((B, L, 4, n), np.float32)
+        ev[:, :, 0] = rng.integers(0, hw[1], (B, L, n))
+        ev[:, :, 1] = rng.integers(0, hw[0], (B, L, n))
+        ev[:, :, 2] = np.sort(rng.random((B, L, n)), axis=-1)
+        ev[:, :, 3] = rng.integers(0, 2, (B, L, n)) * 2 - 1
+        if prefix == "inp":
+            ev[:, :, :, 48:] = 0.0
+            out["inp_len"] = np.full((B, L), 48, np.int32)
+        out[f"{prefix}_events"] = ev
+    return out
+
+
 def save_batches(path, batches):
     np.savez(path, **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
 
@@ -142,9 +159,11 @@ def setup(tmp_path_factory):
     train = [random_batch(rng) for _ in range(3)]
     poisoned = random_batch(rng, empty_gt_clip=B - 1)
     valid = dict(random_batch(rng), clip_mask=np.asarray([1, 1, 1, 0], np.float32))
-    for name, bs in (("train", train), ("poisoned", [poisoned]), ("valid", [valid])):
+    raw = raw_batch(rng)
+    for name, bs in (("train", train), ("poisoned", [poisoned]), ("valid", [valid]),
+                     ("raw", [raw])):
         save_batches(work / f"{name}.npz", bs)
-    return work, jm, v, train, poisoned, valid
+    return work, jm, v, train, poisoned, valid, raw
 
 
 def port_run(work, batches):
@@ -217,7 +236,7 @@ def test_multi_slice_matches_the_jax_multislice_mesh(setup):
 def test_nonfinite_rows_on_one_rank_skip_every_rank(world, two_ranks, four_ranks, setup):
     """Only the last rank's rows make the loss NaN: the all-reduced loss is
     NaN on every rank, so every rank skips, as the JAX mesh guard does."""
-    _, jm, v, _, poisoned, _ = setup
+    _, jm, v, _, poisoned, *_ = setup
     ranks = two_ranks if world == 2 else four_ranks
     jm_, _ = jax_run(jm, v, [poisoned], jmake_mesh(world), skip_nonfinite=True, extra_losses=(
         ("poison", 1.0, lambda p, g, a: 0.0 * jnp.log(jnp.min(jnp.sum(g, axis=(1, 2, 3))))),))
@@ -227,10 +246,74 @@ def test_nonfinite_rows_on_one_rank_skip_every_rank(world, two_ranks, four_ranks
         assert not np.isfinite(r["skip_loss"]) and float(r["skip_moved"]) == 0.0
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_event_term_on_ranks_sums_over_the_whole_batch(world, two_ranks, four_ranks, setup):
+    """``event_warping`` (raw windows, ``events_len``) sums over the batch's
+    clips: each rank's share is scaled by the data axis's size, so the
+    ranks' step equals the port's one-process step and the JAX mesh step
+    (GSPMD: the term over the global batch)."""
+    from bmcnet_esr_tpu.losses.terms import LossContext as JLossContext
+    from bmcnet_esr_tpu.losses.terms import event_warping as jevent_warping
+
+    work, jm, v, *_, raw = setup
+    state = worker.port_state(str(work))
+    step = make_train_step(worker.LR, worker.GT, use_remat=False,
+                           extra_losses=worker.event_terms())
+    _, m = step(state, {k: torch.from_numpy(x) for k, x in raw.items()})
+    jwarp = jevent_warping({"flow_key": "flow"}, JLossContext(worker.LR, worker.GT, worker.SCALE))
+
+    def jterm(pred, gt, aux):
+        b, kh, kw, c = aux["pred"].shape
+        h, w = worker.LR
+        flow = aux["pred"].reshape(b, h, kh // h, w, kw // w, c).mean(axis=(2, 4))
+        return jwarp(pred, gt, dict(aux, flow=flow * worker.EVENT_FLOW_SCALE))
+
+    jterm.needs_events = True
+    jm_, jparams = jax_run(jm, v, [raw], jmake_mesh(world), extra_losses=(("warp", 0.1, jterm),))
+    for r in two_ranks if world == 2 else four_ranks:
+        loss, mse, gnorm = r["events"]
+        assert loss == pytest.approx(float(m["train_loss"]), rel=1e-5)
+        assert loss == pytest.approx(jm_[0]["train_loss"], rel=1e-5)
+        assert mse == pytest.approx(jm_[0]["train_mse_loss"], rel=1e-5)
+        assert gnorm == pytest.approx(float(m["grad_norm"]), rel=1e-4)
+        np.testing.assert_allclose(r["events/params"], worker.flat_params(state.model), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(r["events/params"], jparams, rtol=0, atol=1e-5)
+    assert float(m["train_loss"]) > float(m["train_mse_loss"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_loss_terms_on_ranks_match_one_process_and_jax(world, two_ranks, four_ranks, setup):
+    """recon, temporal consistency, TV and SSIM attached through the
+    ``loss:`` block, with remat: each rank's step on its rows against the
+    port's one-process step and the JAX mesh step with the JAX terms."""
+    from bmcnet_esr_tpu.losses.terms import LossContext as JLossContext
+    from bmcnet_esr_tpu.training.losses import build_extra_losses as jbuild_extra_losses
+
+    work, jm, v, train, *_ = setup
+    state = worker.port_state(str(work))
+    step = make_train_step(worker.LR, worker.GT, use_remat=True, extra_losses=worker.loss_terms())
+    _, m = step(state, {k: torch.from_numpy(x) for k, x in train[0].items()})
+    jterms = jbuild_extra_losses(worker.LOSS_TERMS,
+                                 JLossContext(worker.LR, worker.GT, worker.SCALE))
+    jm_, jparams = jax_run(jm, v, train[:1], jmake_mesh(world), extra_losses=jterms)
+    for r in two_ranks if world == 2 else four_ranks:
+        loss, mse, gnorm = r["terms"]
+        assert loss == pytest.approx(float(m["train_loss"]), rel=1e-5)
+        assert loss == pytest.approx(jm_[0]["train_loss"], rel=1e-5)
+        assert mse == pytest.approx(jm_[0]["train_mse_loss"], rel=1e-5)
+        assert gnorm == pytest.approx(float(m["grad_norm"]), rel=1e-4)
+        assert gnorm == pytest.approx(jm_[0]["grad_norm"], rel=1e-4)
+        np.testing.assert_allclose(r["terms/params"], worker.flat_params(state.model), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(r["terms/params"], jparams, rtol=0, atol=1e-5)
+    assert float(m["train_loss"]) > float(m["train_mse_loss"])
+
+
 def test_eval_step_with_uneven_valid_rows_matches_jax(two_ranks, setup):
     """Rank 0 holds two valid clips, rank 1 one: the weighted means equal the
     JAX sharded eval step's and the port's single-process one."""
-    work, jm, v, _, _, valid = setup
+    work, jm, v, _, _, valid, _ = setup
     want = jmake_parallel_eval_step(jm, worker.LR, worker.GT, jmake_mesh(2))(
         jreplicate_tree(jax.tree.map(jnp.array, v), jmake_mesh(2)), jshard_batch(valid,
                                                                                jmake_mesh(2)))

@@ -119,7 +119,8 @@ def setup(tmp_path_factory):
         torch.save(state.state_dict(), work / f"tp-{variant}.pt")
     one_first, first = worker.resume_trainer(str(work), "one_first", 2)
     one_first.train()
-    parts = {"1x2": ("guard", "extras", "resume"), "1x4": (), "2x2": ("guard", "trainer")}
+    parts = {"1x2": ("guard", "extras", "resume", "float64"), "1x4": ("float64",),
+             "2x2": ("guard", "trainer")}
     launched = {name: launch("tp", world, work, tag=name, n_model=n_model, steps=steps,
                              parts=parts[name])
                 for name, (world, n_model, steps) in MESHES.items()}
@@ -171,6 +172,12 @@ def one_process(setup):
                                                  torch_batch(setup["valid"]))
         out[variant]["eval"] = np.asarray([float(m[k]) for k in ("valid_loss", "valid_mse_loss",
                                                                  "valid_clips")])
+    state = worker.tp_state(work, "plain")
+    step = make_train_step(worker.LR, worker.GT, use_remat=False, extra_losses=worker.loss_terms())
+    state, m = step(state, torch_batch(setup["train"][0]))
+    out["terms"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
+                                                     "grad_norm")])
+    out["terms/params"] = worker.flat_params(state.model)
     state = worker.tp_state(work, "plain", quant="qat")
     step = make_train_step(worker.LR, worker.GT, use_remat=False)
     out["qat/losses"] = np.asarray([float(step(state, torch_batch(b))[1]["train_loss"])
@@ -282,6 +289,40 @@ def test_nonfinite_rows_skip_every_rank(mesh, ranks):
     for r in ranks[mesh]:
         assert r["skipped"].tolist() == [1, 1, 0]
         assert not np.isfinite(r["skip_loss"]) and float(r["skip_moved"]) == 0.0
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "1x4"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_float64_gradient_equals_one_process(mesh, variant, setup, ranks):
+    """In float64 the channel-parallel gradient is the one-process gradient
+    to 1e-12 (||d||/||g||): every crossing sums what it must, and what
+    float32 leaves between the two is round-off (on the card, of cuDNN's
+    algorithms at the sliced shapes)."""
+    from bmcnet_esr_torch.training.train_step import sequence_loss
+
+    m = worker.float64_state(str(setup["work"]), variant)
+    total, _ = sequence_loss(m, torch_batch(setup["train"][0]), worker.LR, worker.GT,
+                             use_remat=False)
+    total.backward()
+    want = np.concatenate([p.grad.reshape(-1).numpy() for p in m.parameters()])
+    for r in ranks[mesh]:
+        got = r[f"f64/{variant}"]
+        assert got.dtype == np.float64
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-12
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_loss_terms_under_model_parallel(mesh, one_process, ranks):
+    """recon, temporal consistency, TV and SSIM attached through the
+    ``loss:`` block on a model axis of 2: the one-process step's loss,
+    ``grad_norm`` and parameters."""
+    want = one_process["terms"]
+    assert want[0] > want[1]  # the terms add to the MSE
+    for r in ranks[mesh]:
+        np.testing.assert_allclose(r["terms"][:2], want[:2], rtol=1e-5)
+        np.testing.assert_allclose(r["terms"][2], want[2], rtol=1e-4)
+        np.testing.assert_allclose(r["terms/params"], one_process["terms/params"], rtol=0,
+                                   atol=1e-5)
 
 
 def test_qat_under_model_parallel(one_process, ranks):

@@ -660,8 +660,8 @@ def test_extra_loss_terms(batches):
     assert float(zero) == float(base)
     with pytest.raises(KeyError, match="unknown loss term"):
         build_extra_losses({"nope": 1.0})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_extra_losses({"lpips": 1.0})
+    with pytest.raises(ValueError, match="lpips term needs its weights"):
+        build_extra_losses({"lpips": 1.0})  # ported: it needs an LPIPS bundle
 
 
 # -- the CLI and the recipe ---------------------------------------------------------

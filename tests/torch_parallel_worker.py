@@ -108,7 +108,55 @@ def steps(rank: int, world: int, work: str, slices: int = 1) -> dict:
     m = ev(port_state(work).model, shard_batch(batches(work, "valid")[0], rank, world))
     out["eval"] = np.asarray([float(m[k]) for k in ("valid_loss", "valid_mse_loss",
                                                     "valid_clips")])
+
+    state = port_state(work)
+    step = make_parallel_train_step(LR, GT, mesh, use_remat=True, extra_losses=loss_terms())
+    state, m = step(state, shard_batch(batches(work, "train")[0], rank, world))
+    out["terms"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
+                                                     "grad_norm")])
+    out["terms/params"] = flat_params(state.model)
+
+    state = port_state(work)
+    step = make_parallel_train_step(LR, GT, mesh, use_remat=False, extra_losses=event_terms())
+    state, m = step(state, shard_batch(batches(work, "raw")[0], rank, world))
+    out["events"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
+                                                      "grad_norm")])
+    out["events/params"] = flat_params(state.model)
     return out
+
+
+EVENT_FLOW_SCALE = 0.01
+
+
+def event_terms():
+    """``event_warping`` on the prediction mean-pooled to the LR grid (times
+    ``EVENT_FLOW_SCALE``): a term that sums over the batch (``batch_sum``)."""
+    from bmcnet_esr_torch.losses.terms import LossContext
+    from bmcnet_esr_torch.training.losses import REGISTRY
+
+    warp = REGISTRY["event_warping"]({"flow_key": "flow"}, LossContext(LR, GT, SCALE))
+
+    def fn(pred, gt, aux):
+        b, kh, kw, c = aux["pred"].shape
+        flow = aux["pred"].reshape(b, LR[0], kh // LR[0], LR[1], kw // LR[1], c).mean(dim=(2, 4))
+        return warp(pred, gt, dict(aux, flow=flow * EVENT_FLOW_SCALE))
+
+    fn.needs_events = fn.batch_sum = True
+    return (("warp", 0.1, fn),)
+
+
+# batch means, so the ranks' mean is the global batch's: SSIM's range is
+# pinned (unpinned, each rank would read its own rows' GT range)
+LOSS_TERMS = {"recon": {"weight": 0.5}, "temporal_consistency": 0.1, "total_variation": 0.05,
+              "ssim": {"weight": 0.1, "data_range": 8.0}}
+
+
+def loss_terms():
+    """The count-image terms of the ``loss:`` block at this file's shapes."""
+    from bmcnet_esr_torch.losses.terms import LossContext
+    from bmcnet_esr_torch.training.losses import build_extra_losses
+
+    return build_extra_losses(LOSS_TERMS, LossContext(LR, GT, SCALE))
 
 
 def trainer_config(work: str, datalist: str, **trainer) -> dict:
@@ -325,7 +373,8 @@ def tp_steps(rank: int, world: int, work: str, mesh, steps: int) -> dict:
 
 
 def tp_guard(rank: int, world: int, work: str, mesh) -> dict:
-    """The guarded step on the poisoned batch: its last clip's loss is NaN."""
+    """The guarded step on the poisoned batch (its last clip's loss is NaN),
+    and a step with the count-image loss terms."""
     from bmcnet_esr_torch.parallel import (
         ChannelGroup,
         make_parallel_train_step,
@@ -344,6 +393,61 @@ def tp_guard(rank: int, world: int, work: str, mesh) -> dict:
     out["skipped"] = np.asarray([m["train_skipped"], state.step, state.updates])
     out["skip_loss"] = np.asarray(float(m["train_loss"]))
     out["skip_moved"] = np.asarray(float(np.abs(flat_params(state.model) - init).max()))
+
+    from bmcnet_esr_torch.parallel import gather_tree
+
+    state = shard_tree_channels(tp_state(work, "plain"), mesh)
+    step = make_parallel_train_step(LR, GT, mesh, use_remat=False, extra_losses=loss_terms())
+    state, m = step(state, shard_batch(batches(work, "train")[0], *rows))
+    out["terms"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
+                                                     "grad_norm")])
+    out["terms/params"] = flat_params(gather_tree(state, mesh).model)
+    return out
+
+
+def float64_state(work: str, variant: str):
+    """The carried state's model as a float64 copy (the float64 reference
+    dtype), one-device layout."""
+    from bmcnet_esr_torch.models import BMCNet, BMCNetPlain
+
+    cls = BMCNet if variant == "full" else BMCNetPlain
+    m = cls(scale=SCALE, n_c=N_C, n_b=N_B, dtype=torch.float64)
+    m.load_state_dict(tp_state(work, variant).model.state_dict())
+    return m.double().to(memory_format=torch.channels_last)
+
+
+def tp_float64(rank: int, world: int, work: str, mesh) -> dict:
+    """The first train batch's gradient in float64 through the
+    channel-parallel forward, each split parameter's gradient gathered
+    whole: the crossings' sums against one process, free of float32
+    round-off."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from bmcnet_esr_torch.parallel import ChannelGroup, ChannelParallelForward, channel_sharding
+    from bmcnet_esr_torch.training.train_step import sequence_loss
+
+    axis = ChannelGroup.of(mesh)
+    out = {}
+    for variant in ("plain", "full"):
+        m = float64_state(work, variant)
+        placements = channel_sharding(m, axis.n)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if isinstance(placements.get(name), Shard):
+                    p.data = p.data.chunk(axis.n)[axis.rank].clone()
+        total, _ = sequence_loss(ChannelParallelForward(m, axis), batches(work, "train")[0], LR,
+                                 GT, use_remat=False)
+        total.backward()
+        grads = []
+        for name, p in m.named_parameters():
+            g = p.grad.contiguous()
+            if isinstance(placements.get(name), Shard):
+                parts = [torch.empty_like(g) for _ in range(axis.n)]
+                dist.all_gather(parts, g, group=axis.group)
+                g = torch.cat(parts)
+            grads.append(g.reshape(-1))
+        out[f"f64/{variant}"] = torch.cat(grads).numpy()
     return out
 
 
