@@ -17,13 +17,16 @@ recurrent unroll (``training/train_step.py::_rollout_losses``):
                     only when a term sets ``needs_events`` (which needs
                     ``compact_transfer: False``: the compact form drops ts)
     ``events_len``  the window's valid event counts ``[B]``, with ``events``
+    ``batch_max``   on a data-parallel step, the elementwise max of a tensor
+                    over the ranks that share the batch
 
 A term is a mean over the batch's clips, but the two event terms, which
 sum over them (as the reference's losses do) and say so with
 ``fn.batch_sum``: the data-parallel step scales those by its data axis's
 size, so each rank's share adds up to the whole batch's sum.  ``ssim``
-without a pinned ``data_range`` reads the GT's range over the rows it is
-given, so under data parallelism over a rank's rows only.
+without a pinned ``data_range`` reads the GT's range over the whole batch,
+through ``aux['batch_max']`` on a data-parallel step, as the JAX mesh step
+reads it over the global batch.
 
 The recon-family term of count-image SR is ``lr_consistency``: the HR
 prediction mean-pooled to the LR grid must reproduce the LR counts (the GT
@@ -204,16 +207,18 @@ def event_warping(cfg: Dict, ctx: Optional[LossContext]) -> Callable:
 
 def ssim(cfg: Dict, ctx: Optional[LossContext]) -> Callable:
     """``1 - SSIM`` of the fitted prediction (skimage semantics); the data
-    range is the GT's unless ``data_range`` pins it."""
+    range is the whole batch's GT's unless ``data_range`` pins it."""
     win = int(cfg.get("win_size", 7))
     pinned_range = cfg.get("data_range")
 
     def fn(pred, gt, aux):
-        dr = (
-            torch.as_tensor(pinned_range, dtype=pred.dtype, device=pred.device)
-            if pinned_range is not None
-            else torch.clamp(torch.max(gt) - torch.min(gt), min=1e-6)
-        )
+        if pinned_range is not None:
+            dr = torch.as_tensor(pinned_range, dtype=pred.dtype, device=pred.device)
+        else:
+            hi_lo = torch.stack([torch.max(gt), -torch.min(gt)])
+            if "batch_max" in aux:  # the other ranks' rows of the batch
+                hi_lo = aux["batch_max"](hi_lo)
+            dr = torch.clamp(hi_lo[0] + hi_lo[1], min=1e-6)
         # each channel is an independent 2-D count image
         return 1.0 - ssim_fn(torch.movedim(pred, -1, 1), torch.movedim(gt, -1, 1), dr,
                              win_size=win)

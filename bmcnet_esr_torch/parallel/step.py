@@ -15,6 +15,10 @@ forward call of the module it wraps.
   across ``dcn_data``, ``mesh.py:55-96``).  Copying into and out of the
   bucket keeps each gradient's dtype and memory format (channels-last
   parameters), so one rank reproduces the single-device step bit for bit.
+* A loss term sees the whole batch as the JAX step's does: one that sums
+  over the clips is scaled by the data degree (``batch_scale``), and one
+  that reads a statistic of the batch (``ssim``'s GT range) takes it over
+  the ranks through ``aux['batch_max']`` (an all-reduce of a few scalars);
 * ``train_loss``, ``train_mse_loss`` and ``grad_norm`` are the global
   batch's, equal on every rank; ``skip_nonfinite`` decides on them, so every
   rank skips together (``tests/test_parallel.py:75``).
@@ -42,6 +46,7 @@ channel slices (``shard_tree_channels``) and the model runs through
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -79,6 +84,14 @@ def all_reduce_sum(flat: Tensor, mesh) -> Tensor:
     for group in _groups(mesh):
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     return flat
+
+
+def all_reduce_max(t: Tensor, mesh) -> Tensor:
+    """The elementwise max of ``t`` over the data axes of ``mesh``, in
+    place: ``aux['batch_max']`` of the parallel steps' loss terms."""
+    for group in _groups(mesh):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
 
 
 def _data_size(mesh) -> int:
@@ -148,7 +161,8 @@ def make_parallel_train_step(
         with torch.enable_grad():
             total, aux = sequence_loss(_forward(model, axis), batch, inp_resolution,
                                        gt_resolution, seqn, use_remat, extra_losses,
-                                       batch_scale=_data_size(mesh))
+                                       batch_scale=_data_size(mesh),
+                                       batch_max=functools.partial(all_reduce_max, mesh=mesh))
             total.backward()
         fill_missing_grads(model)
         grads = [p.grad for p in model.parameters()]
@@ -176,7 +190,8 @@ def make_parallel_eval_step(
 
     def step(model: torch.nn.Module, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         sums = eval_sums(_forward(model, axis), batch, inp_resolution, gt_resolution, seqn,
-                         terms, batch_scale=_data_size(mesh))
+                         terms, batch_scale=_data_size(mesh),
+                         batch_max=functools.partial(all_reduce_max, mesh=mesh))
         return eval_metrics(all_reduce_sum(sums.to(torch.float32), mesh))
 
     return step

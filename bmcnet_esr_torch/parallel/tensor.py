@@ -42,14 +42,28 @@ The per-module rules:
 * QAT: the per-lane activation scale is a max over the convolution's input,
   which is whole; the per-output-channel weight scale is local.
 
-Against the one-device forward, float32 differs by the order of the channel
-sums (the LayerNorm statistics, a convolution's input gradient summed over
-the ranks) and by the convolution algorithms at the sliced shapes.
+On CUDA the forward runs its float32 convolutions through PyTorch's own
+kernels (im2col and a GEMM, forward and backward), not cuDNN's.  At a
+rank's sliced shapes (131, 150 or 128 -> 64 channels) cuDNN picks FFT
+convolutions, whose output is not exactly zero where the input patch is.
+At the first step, with zero biases and zero states, many ReLU inputs are
+exactly 0, and through FFT about half of them pass their gradient: the
+tensor-parallel gradient sat 35 times further from float64 than the
+one-device one.  A GEMM over an all-zero patch sums exact zeros, and at
+these shapes the own kernels also ran several times faster than the FFT
+ones on an H100.  On the CPU ``F.conv2d`` stays:
+there the sliced convolutions keep the one-device step's parameters within
+atol 1e-5, QAT's included, and PyTorch's own kernels, which sum in another
+order, move QAT's rounding past that.  Against the one-device forward,
+float32 then differs by the order of the channel sums (the LayerNorm
+statistics, a convolution's input gradient summed over the ranks) and by
+the convolution kernels.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence
 
@@ -57,6 +71,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules.utils import _pair
+from torch.overrides import TorchFunctionMode
 
 from bmcnet_esr_torch.models.bmcnet import Backbone
 from bmcnet_esr_torch.models.layers import Conv, quant_mode
@@ -195,6 +211,35 @@ def sum_ranks(t: Tensor, axis: ChannelGroup) -> Tensor:
     return _Sum.apply(t, axis)
 
 
+def own_conv2d(x: Tensor, weight: Tensor, bias: Optional[Tensor] = None, stride=1, padding=0,
+               dilation=1, groups=1) -> Optional[Tensor]:
+    """``F.conv2d`` through PyTorch's own kernels, whose derivative is their
+    own too (``aten._slow_conv2d_forward`` / ``_slow_conv2d_backward``):
+    float32, ungrouped and undilated; ``None`` for any other call."""
+    if (x.dtype != torch.float32 or groups != 1 or isinstance(padding, str)
+            or _pair(dilation) != (1, 1)):
+        return None
+    # NCHW, the kernels' own layout.  A channels-last 1x1 weight counts as
+    # contiguous but keeps strides that the CPU backward misreads (a wrong
+    # weight gradient), so the weight is always copied to NCHW's strides
+    return torch.ops.aten._slow_conv2d_forward(
+        x.contiguous(), weight.clone(memory_format=torch.contiguous_format),
+        list(weight.shape[2:]), bias, list(_pair(stride)), list(_pair(padding)))
+
+
+class OwnConvolutions(TorchFunctionMode):
+    """Inside it, every float32 ``F.conv2d`` goes through :func:`own_conv2d`
+    (the module docstring says why); other dtypes keep cuDNN."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is F.conv2d:
+            out = own_conv2d(*args, **kwargs)
+            if out is not None:
+                return out
+        return func(*args, **kwargs)
+
+
 class ChannelParallelForward(nn.Module):
     """``forward(x, *states)`` of ``model`` on one rank of a model group,
     the parameters cut to the rank's slices (``shard_tree_channels``).
@@ -202,7 +247,8 @@ class ChannelParallelForward(nn.Module):
     Takes and returns what the model does, but each recurrent state is this
     rank's channels of it (``init_state`` makes them); the prediction is
     whole on every rank.  The int8 serving modes run on one device; QAT
-    trains here."""
+    trains here.  On CUDA, float32 convolutions run under
+    :class:`OwnConvolutions`."""
 
     def __init__(self, model: nn.Module, axis: ChannelGroup):
         super().__init__()
@@ -229,6 +275,10 @@ class ChannelParallelForward(nn.Module):
         return (z,) * len(hidden) + (o,)
 
     def forward(self, x: Tensor, *states: Tensor):
+        with OwnConvolutions() if x.is_cuda else contextlib.nullcontext():
+            return self._forward(x, *states)
+
+    def _forward(self, x: Tensor, *states: Tensor):
         m = self.model
         f2, (*args, o) = m._prologue(x, *states)
         o, = cross([o], self.axis, False, self.split)  # feeds only n_c-channel convolutions

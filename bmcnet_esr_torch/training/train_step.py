@@ -115,7 +115,7 @@ def global_norm(tensors) -> Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
-def _rollout_losses(
+def _rollout(
     model: nn.Module,
     inp_frames: Tensor,  # [B, L, H, W, 2]
     gt_frames: Tensor,  # [B, L, kH, kW, 2]
@@ -126,11 +126,12 @@ def _rollout_losses(
     inp_events: Optional[Tensor] = None,  # [B, L, 4, N] raw, for event-consuming terms
     inp_lens: Optional[Tensor] = None,  # [B, L] valid counts of the padded windows
     batch_scale: float = 1.0,
+    batch_max: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Tuple[Tensor, Tensor]:
-    """Per-step per-clip ``(MSE, total)`` over the recurrent unroll: two
-    ``[S, B]`` tensors.  ``extra_losses`` are ``(name, weight, fn)`` with
-    ``fn(pred_fit, gt, aux) -> scalar``; the per-step total is
-    ``mse + sum(w * fn(...))``.  ``aux`` holds the raw prediction
+    """The recurrent unroll's per-step per-clip MSE ``[S, B]`` and per-step
+    sum of the extra terms ``[S]``.  ``extra_losses`` are
+    ``(name, weight, fn)`` with ``fn(pred_fit, gt, aux) -> scalar``; a
+    step's terms are ``sum(w * fn(...))``.  ``aux`` holds the raw prediction
     (``pred``), the previous step's output (``prev_pred``), the step's
     input pair (``inp``) and index (``step``), and with ``inp_events`` the
     step's raw window (``events``, the pair's second window) and, with
@@ -138,7 +139,10 @@ def _rollout_losses(
     ``bmcnet_esr_torch/losses/terms.py``.  A term marked ``batch_sum`` (a
     sum over the batch's clips, not a mean) is multiplied by
     ``batch_scale``: the data-parallel step passes its data axis's size, so
-    that the ranks' mean is the whole batch's sum."""
+    that the ranks' mean is the whole batch's sum.  ``batch_max``, when
+    given, is ``aux['batch_max']``: the elementwise max of a tensor over the
+    ranks that share the batch (the data-parallel step's), for a term that
+    reads a statistic of the whole batch (``ssim``'s GT range)."""
     b, _, h, w, _ = inp_frames.shape
     pairs = sliding_pairs(inp_frames, seqn)  # [B, S, seqn, H, W, 2]
     s = pairs.shape[1]
@@ -151,9 +155,11 @@ def _rollout_losses(
         pred_fit = (resize_bicubic(pred, gt_resolution)
                     if tuple(pred.shape[1:3]) != tuple(gt.shape[1:3]) else pred)
         mse = torch.mean(torch.square(pred_fit - gt), dim=(1, 2, 3))  # [B]
-        total = mse
+        extra = mse.new_zeros(())
         if extra_losses:
             aux = {"pred": pred, "prev_pred": prev_pred, "inp": x, "step": step}
+            if batch_max is not None:
+                aux["batch_max"] = batch_max
             if events is not None:
                 aux["events"] = events
                 if events_len is not None:
@@ -161,11 +167,11 @@ def _rollout_losses(
             for _, weight, fn in extra_losses:
                 if getattr(fn, "batch_sum", False):
                     weight = weight * batch_scale
-                total = total + weight * fn(pred_fit, gt, aux)  # scalar, broadcast
-        return (*outs, mse, total)
+                extra = extra + weight * fn(pred_fit, gt, aux)  # scalar
+        return (*outs, mse, extra)
 
     carry = tuple(model.init_state(b, h, w, device=inp_frames.device))
-    mses, totals = [], []
+    mses, extras = [], []
     for t in range(s):
         # the step's "current" window is the pair's second one (index 1),
         # the one its GT aligns to
@@ -178,8 +184,16 @@ def _rollout_losses(
         out = checkpoint(body, *args, use_reentrant=False) if use_remat else body(*args)
         carry = tuple(out[:-2])
         mses.append(out[-2])
-        totals.append(out[-1])
-    return torch.stack(mses), torch.stack(totals)
+        extras.append(out[-1])
+    return torch.stack(mses), torch.stack(extras)
+
+
+def _rollout_losses(*args, **kwargs) -> Tuple[Tensor, Tensor]:
+    """Per-step per-clip ``(MSE, total)`` over the recurrent unroll: two
+    ``[S, B]`` tensors, the total ``mse + sum(w * fn(...))``; the arguments
+    of :func:`_rollout`."""
+    mses, extras = _rollout(*args, **kwargs)
+    return mses, mses + extras[:, None]
 
 
 def _normalized(extra_losses: Tuple) -> Tuple:
@@ -211,17 +225,18 @@ def sequence_loss(
     use_remat: bool = True,
     extra_losses: Tuple = (),
     batch_scale: float = 1.0,
+    batch_max: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Total BPTT loss of one batch of clips (raw ``{inp,gt}_events`` or the
     compact ``{inp,gt}_{xy,p}``) and the reference's log metrics
-    (``batch_scale``: :func:`_rollout_losses`)."""
+    (``batch_scale``, ``batch_max``: :func:`_rollout_losses`)."""
     extra_losses = _normalized(extra_losses)
     inp_frames = counts_from_batch(batch, "inp", tuple(inp_resolution))
     gt_frames = counts_from_batch(batch, "gt", tuple(gt_resolution))
     inp_events, inp_lens = _events_for_terms(batch, extra_losses)
     mses, totals = _rollout_losses(
         model, inp_frames, gt_frames, seqn, gt_resolution, use_remat, extra_losses,
-        inp_events=inp_events, inp_lens=inp_lens, batch_scale=batch_scale,
+        inp_events=inp_events, inp_lens=inp_lens, batch_scale=batch_scale, batch_max=batch_max,
     )  # [S, B] each
     total = totals.mean(dim=1).sum()
     return total, {"mse_loss": mses[-1].mean(), "loss": total}
@@ -338,31 +353,38 @@ def make_eval_step(
 
 @torch.no_grad()
 def eval_sums(model: nn.Module, batch: Dict[str, Tensor], inp_resolution, gt_resolution,
-              seqn: int, terms: Tuple, batch_scale: float = 1.0) -> Tensor:
-    """``[S + 2]``: per step the ``clip_mask``-weighted sum over the clips of
-    the total loss, then that of the last step's MSE, then the weights' sum.
-    Sums over several batches' clips add (the data-parallel eval step, which
-    passes its data axis's size as ``batch_scale``)."""
+              seqn: int, terms: Tuple, batch_scale: float = 1.0,
+              batch_max: Optional[Callable[[Tensor], Tensor]] = None) -> Tensor:
+    """``[2 S + 2]``: per step the ``clip_mask``-weighted sum over the clips
+    of the MSE, per step the extra terms (a value of the batch, not of a
+    clip) over ``batch_scale``, then the last step's weighted MSE sum, then
+    the weights' sum.  The sums of the ranks that share a batch add up to
+    the whole batch's (the data-parallel eval step, which passes its data
+    axis's size as ``batch_scale`` and its max over the ranks as
+    ``batch_max``): the terms' parts to their mean over the ranks, the
+    whole batch's value, however the valid clips fall on the ranks."""
     model.eval()
     inp_frames = counts_from_batch(batch, "inp", tuple(inp_resolution))
     gt_frames = counts_from_batch(batch, "gt", tuple(gt_resolution))
     inp_events, inp_lens = _events_for_terms(batch, terms)
-    mses, totals = _rollout_losses(
+    mses, extras = _rollout(
         model, inp_frames, gt_frames, seqn, gt_resolution, False, terms,
-        inp_events=inp_events, inp_lens=inp_lens, batch_scale=batch_scale,
-    )  # [S, B]
+        inp_events=inp_events, inp_lens=inp_lens, batch_scale=batch_scale, batch_max=batch_max,
+    )  # [S, B], [S]
     w = batch.get("clip_mask")
     if w is None:
         w = torch.ones(inp_frames.shape[0], device=inp_frames.device)
-    return torch.cat([(totals * w).sum(-1), (mses[-1] * w).sum(-1, keepdim=True),
-                      w.sum().reshape(1)])
+    return torch.cat([(mses * w).sum(-1), extras / batch_scale,
+                      (mses[-1] * w).sum(-1, keepdim=True), w.sum().reshape(1)])
 
 
 def eval_metrics(sums: Tensor) -> Dict[str, Tensor]:
-    """The validation metrics of :func:`eval_sums`: weighted means."""
+    """The validation metrics of :func:`eval_sums`: weighted means, each
+    step's terms counted for every weighted clip."""
+    s = (sums.shape[0] - 2) // 2
     wsum = torch.clamp(sums[-1], min=1.0)
     return {
-        "valid_loss": (sums[:-2] / wsum).sum(),
+        "valid_loss": ((sums[:s] + sums[s : 2 * s] * sums[-1]) / wsum).sum(),
         "valid_mse_loss": sums[-2] / wsum,
         "valid_clips": sums[-1],
     }

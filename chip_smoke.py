@@ -43,9 +43,10 @@ failure:
    spread, yardsticks timed in turns with the kernels, the SM clock before
    and after), the rasterizer's at the training path's shapes, its raw
    float32 form at the NFS and RGB recipes' training shapes and on a hot
-   pixel, each loss term's device time at the RGB shapes, and the kernels
-   cuDNN picks for the first convolutions on one device and on a rank of
-   tensor parallelism (10f).  It runs
+   pixel, each loss term's device time at the RGB shapes, and a rank's
+   first split convolutions of tensor parallelism (10f) through PyTorch's
+   own kernels: exact zeros over all-zero patches, and their cost against
+   cuDNN's.  It runs
    between phases 3 and 4, because the profiler loses device records late in
    a long process; the JSON line with all of it is printed at the end;
 7. the training path (after phase 6, before phase 4): BPTT gradients of
@@ -106,15 +107,17 @@ failure:
    convolution's output channels split in two, against the one-device
    steps (loss rel 1e-5, ``grad_norm`` rel 1e-4, parameters at atol 1e-5
    but for a share bounded by ``TP_PARAM_SHARE``, the first step's gathered
-   gradient against the same step in float64 on one device: with cuDNN off
-   within ``TP_GRAD_FACTOR`` times the one-device gradient's distance, with
-   cuDNN on within ``TP_GRAD_REL``), with ms/iteration,
+   gradient against the same step in float64 on one device, within
+   ``TP_GRAD_FACTOR`` times the one-device gradient's distance), with
+   ms/iteration,
    the collectives and bytes and peak memory of a rank, and checkpoints that
    resume across the two layouts within rel 1e-5;
 11. the loss terms (after phase 7, before phase 10): ``loss_goldens.npz``
    and the plain and resnet entries of ``lpips_goldens.npz`` on the card;
    every term of the ``loss:`` registry and its gradients in float32 at
-   the RGB recipe's shapes against the CPU in float64; the perceptual
+   the RGB recipe's shapes against the CPU in float64 (where float32 is
+   ill-conditioned, within ``TERM_F32_FACTOR`` times the CPU float32's own
+   distance, and float64 against float64); the perceptual
    recipe (``configs/train_RGB_percep.yml``: recon + LPIPS + temporal
    consistency, remat, ``grad_accum: 2``) at full width through ``Trainer``
    with a resume that repeats an iteration bit for bit, timed and profiled;
@@ -1483,18 +1486,12 @@ TP_ITERS = 2        # (f): tensor-parallel steps from (a)'s state, and the Train
 # holds for neither.
 TP_PARAM_SHARE = 1e-3
 # (f): the first step's gathered tensor-parallel gradient against the same
-# step in float64 on one device (||d||/||g||).  With cuDNN off on both, the
-# tensor-parallel gradient sits at most TP_GRAD_FACTOR times the one-device
-# gradient's own distance (both measured in the run): the crossings add
-# float32 round-off only.  With cuDNN on it sat 5.836e-04 from float64 in
-# every run on an H100 80GB HBM3 at 700 W (one device: 1.670e-05): at the
-# ranks' 64-channel shapes cuDNN picks FFT convolutions, whose outputs are
-# not exactly zero where the input is, and at the first step (zero biases,
-# zero states) a ReLU whose input should be exactly 0 then passes its
-# gradient: conv_fps.bias 5.65e-02 from float64.  TP_GRAD_REL, twice that
-# measurement, holds it there.
+# step in float64 on one device (||d||/||g||) sits at most TP_GRAD_FACTOR
+# times the one-device float32 gradient's own distance, both measured in the
+# run: the crossings and the split convolutions add float32 round-off only
+# (parallel/tensor.py runs the split convolutions through PyTorch's own
+# kernels: cuDNN's FFT convolutions at the ranks' shapes sat 35x away).
 TP_GRAD_FACTOR = 3.0
-TP_GRAD_REL = 1.2e-3
 PARALLEL_SEED = 11
 # (d): 8 slots over a mesh of 2 (cuda:0 twice), ticks with a reload before
 # SLOT_RELOAD, and the daemon's client windows; (e): one stream's 45 rows
@@ -1989,7 +1986,6 @@ def _tp_rank(rank: int, store: str, out: str, sizes: dict) -> None:
     dev = init_distributed(sizes["DEVICE"], backend="gloo", init_method=f"file://{store}",
                            timeout_s=GLOO_JOIN_S)
     try:
-        native = tp_native_grad(dev)
         tr, metrics = tp_trainer(WORK, "tp_first", dev, TP_ITERS, make_dirs=rank == 0,
                                  model_parallel=2)
         placements = channel_sharding(tr.state.model, 2)
@@ -2036,48 +2032,9 @@ def _tp_rank(rank: int, store: str, out: str, sizes: dict) -> None:
                  names=list(rows), rows=list(rows.values()), step_launches=rec["launches"],
                  launches=rasterize.launches, kinds=kinds,
                  coll=[rec["coll"][k] for k in kinds], coll_bytes=[rec["bytes"][k] for k in kinds],
-                 second=[float(m["train_loss"]) for m in second], start=start,
-                 grad_native=native)
+                 second=[float(m["train_loss"]) for m in second], start=start)
     finally:
         torch.distributed.destroy_process_group()
-
-
-def tp_native_grad(dev):
-    """(f)'s first step's gradient through the channel-parallel forward with
-    cuDNN off (PyTorch's own convolutions), gathered: (a)'s starting state
-    and first batch, no update.  A collective: both ranks call it."""
-    import torch
-    from torch.distributed.tensor import Shard
-
-    from bmcnet_esr_torch.parallel import (
-        ChannelGroup,
-        ChannelParallelForward,
-        channel_sharding,
-        make_process_mesh,
-    )
-    from bmcnet_esr_torch.training.train_step import sequence_loss
-    from bmcnet_esr_torch.utils import strict_fp32
-
-    strict_fp32()
-    mesh = make_process_mesh(1, 2)
-    axis = ChannelGroup.of(mesh)
-    model = recipe_state(dev).model
-    placements = channel_sharding(model, axis.n)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if isinstance(placements.get(name), Shard):
-                p.data = p.data.chunk(axis.n)[axis.rank].clone()
-    torch.backends.cudnn.enabled = False
-    try:
-        total, _ = sequence_loss(ChannelParallelForward(model, axis), parallel_batches(dev, 1)[0],
-                                 LR, GT, use_remat=False)
-        total.backward()
-    finally:
-        torch.backends.cudnn.enabled = True
-    grad = flat_grads(model, mesh)
-    del model, total
-    torch.cuda.empty_cache()
-    return grad
 
 
 def float64_grad(dev):
@@ -2119,7 +2076,9 @@ def parallel_model(dev, mods, totals: dict, card: str, ref: dict) -> None:
     them, with beside it the same comparison for the one-device step with
     cuDNN off (PyTorch's own convolutions), the spread of two valid float32
     implementations of one step; the first step's gathered gradient against
-    one device's, beside the same for cuDNN off.  Then the ``Trainer`` with ``model_parallel: 2``
+    the same step in float64 on one device, within ``TP_GRAD_FACTOR`` times
+    the one-device float32 gradient's distance.  Then the ``Trainer`` with
+    ``model_parallel: 2``
     checkpointing for one device to resume and resuming one device's, both
     against the uninterrupted one-device ``Trainer`` (rel 1e-5)."""
     import numpy as np
@@ -2205,7 +2164,6 @@ def parallel_model(dev, mods, totals: dict, card: str, ref: dict) -> None:
     norm64 = np.linalg.norm(grad64)
     to64 = {name: float(np.linalg.norm(g - grad64) / norm64)
             for name, g in (("tensor-parallel", a["grad"]), ("one-device", ref["grad"]),
-                            ("tensor-parallel cuDNN off", a["grad_native"]),
                             ("one-device cuDNN off", native_grad))}
     worst64 = {name: float(np.max(np.abs(g - grad64)))
                for name, g in (("tensor-parallel", a["grad"]), ("one-device", ref["grad"]))}
@@ -2218,18 +2176,14 @@ def parallel_model(dev, mods, totals: dict, card: str, ref: dict) -> None:
         return ", ".join(f"{name} {r:.2e}" for r, name in sorted(rel, reverse=True)[:4])
 
     print(f"parallel (f) float64 reference, the parameters farthest from it: tensor-parallel "
-          f"{worst_params(a['grad'])}; tensor-parallel cuDNN off "
-          f"{worst_params(a['grad_native'])}; one-device {worst_params(ref['grad'])}")
+          f"{worst_params(a['grad'])}; one-device {worst_params(ref['grad'])}")
     print(f"parallel (f) float64 reference: the first step's gradient in float64 on one device "
           f"({s64:.1f} s, peak memory {peak64 / 2**30:.2f} GiB); ||d||/||g64|| of "
           + ", ".join(f"{k} {v:.3e}" for k, v in to64.items())
           + f"; max |d| tensor-parallel {worst64['tensor-parallel']:.3e}, one-device "
-          f"{worst64['one-device']:.3e} of max |g64| {np.abs(grad64).max():.3e}; with cuDNN off "
-          f"the tensor-parallel gradient at "
-          f"{to64['tensor-parallel cuDNN off'] / to64['one-device cuDNN off']:.2f}x the "
-          f"one-device one's distance (bound {TP_GRAD_FACTOR}x); with cuDNN on at "
-          f"{to64['tensor-parallel']:.3e} (bound {TP_GRAD_REL}), "
-          f"{to64['tensor-parallel'] / to64['one-device']:.2f}x the one-device one's")
+          f"{worst64['one-device']:.3e} of max |g64| {np.abs(grad64).max():.3e}; the "
+          f"tensor-parallel gradient at {to64['tensor-parallel'] / to64['one-device']:.2f}x "
+          f"the one-device one's distance (bound {TP_GRAD_FACTOR}x)")
 
     check(rel <= 1e-5, f"tensor-parallel losses {a['losses']} vs one device's {want_loss}")
     check(rel_g <= 1e-4, f"tensor-parallel grad norms {a['gnorms']} vs {want_gnorm}")
@@ -2286,14 +2240,10 @@ def parallel_model(dev, mods, totals: dict, card: str, ref: dict) -> None:
           f"model_parallel resuming one device's rel {rel_in:.2e}, against the uninterrupted "
           f"one-device run {whole_loss.tolist()} (rtol 1e-5); rank 0's checkpoints {saved}; "
           f"{wall:.1f} s from spawn to join; on {card}")
-    check(to64["tensor-parallel cuDNN off"] <= TP_GRAD_FACTOR * to64["one-device cuDNN off"],
-          f"with cuDNN off the tensor-parallel gradient sits "
-          f"{to64['tensor-parallel cuDNN off']:.3e} from float64, more than {TP_GRAD_FACTOR}x "
-          f"the one-device gradient's {to64['one-device cuDNN off']:.3e}: a crossing adds more "
-          "than round-off")
-    check(to64["tensor-parallel"] <= TP_GRAD_REL,
-          f"the tensor-parallel gradient sits {to64['tensor-parallel']:.3e} from float64 "
-          f"(bound {TP_GRAD_REL})")
+    check(to64["tensor-parallel"] <= TP_GRAD_FACTOR * to64["one-device"],
+          f"the tensor-parallel gradient sits {to64['tensor-parallel']:.3e} from float64, more "
+          f"than {TP_GRAD_FACTOR}x the one-device gradient's {to64['one-device']:.3e}: the "
+          "tensor-parallel forward adds more than round-off")
 
 
 def parallel_slots(dev, mods, totals: dict, card: str) -> None:
@@ -3402,6 +3352,10 @@ LOSS_VALUE_RTOL, LOSS_GRAD_RTOL = 1e-5, 1e-4  # the card's float32 against the C
 # the card's float64 against the CPU's float64, where float32 cannot be
 # held to float64 (TERM_CASES)
 LOSS64_VALUE_RTOL, LOSS64_GRAD_RTOL = 1e-9, 1e-7
+# where float32 is ill-conditioned (TERM_CASES), the card's float32 distance
+# from the CPU's float64 is held to this many times the CPU float32's own
+# distance, measured in the run (or to the strict bounds, if larger)
+TERM_F32_FACTOR = 3.0
 RAW_FLOW_SCALE = 0.01  # the raw case's flow: the LR-pooled prediction times this
 
 
@@ -3585,9 +3539,11 @@ def term_inputs(rng):
 
 # (name, the term's spec, the inputs its gradient is taken of, how the card
 # is held to the CPU).  "float64": the card's float32 value and gradients
-# against the CPU's float64.  "piecewise": the value so, and the gradients in
-# float64 on both: they jump where a coordinate crosses a pixel edge, an L1
-# difference or a ReLU's input changes sign or a max-pool's maximum moves,
+# against the CPU's float64.  "piecewise": the value so; the gradients within
+# TERM_F32_FACTOR times the CPU float32's distance from float64, and in
+# float64 on both within LOSS64_GRAD_RTOL: they jump where a coordinate
+# crosses a pixel edge, an L1 difference or a ReLU's input changes sign or a
+# max-pool's maximum moves,
 # and float32 round-off puts a few of a million points on the other side
 # (a coordinate of hundreds of pixels moves by its spacing, 6e-5 at 760,
 # with the order of rounding: the card divides by a scalar as a product
@@ -3597,8 +3553,8 @@ def term_inputs(rng):
 # from float64 on an H100, so it is held to the float32 bound.  "ill":
 # the event warping loss, whose float32 value is ill-conditioned too (its
 # averaged timestamps divide by counts plus 1e-9,
-# bmcnet_esr_torch/losses/flow.py): value and gradients in float64 on both.
-# Each line prints the card's float32 distances from float64 beside them.
+# bmcnet_esr_torch/losses/flow.py): value and gradients as "piecewise"'s
+# gradients.
 TERM_CASES = [
     ("recon", {"norm": "l1"}, ("pred",), "float64"),
     ("lr_consistency", {"norm": "l2"}, ("pred",), "float64"),
@@ -3629,42 +3585,58 @@ def term_inputs_on(dev, dtype, wrt=()):
     return args, dict(aux, step=1)
 
 
-def conv_algorithms(dev, card: str) -> None:
-    """Which kernels cuDNN runs (deterministic, strict float32) for the
-    first convolutions of the full model on one device (128 output
-    channels) and on a rank of part (f) (64), on an input whose hidden
-    channels are zero, as at the first step; and whether an output whose
-    3x3 input patch is all zero comes out exactly zero.  (In the timing
-    phase: the profiler keeps a short trace's records early in a run.)"""
+def split_convolutions(dev, card: str) -> None:
+    """The first split convolutions of (f) at a rank's shapes (64 of 128
+    output channels, batch ``TRAIN_B`` on the NFS recipe's LR grid) on an
+    input whose hidden channels are zero, as at the first step, weights
+    laid out as the model's.  Through ``parallel.tensor.own_conv2d``, the
+    channel-parallel forward's route, every output over an all-zero 3x3
+    patch is exactly the bias (0) and the rest within rel 1e-5 of cuDNN's
+    ``F.conv2d``; printed beside it, how many of cuDNN's outputs there are
+    not zero (its FFT convolutions), and the device ms of forward and
+    backward by either route: the cost of keeping cuDNN off them."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from bmcnet_esr_torch.parallel.tensor import own_conv2d
 
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     rng = np.random.default_rng(0)
-    for cin, cout in ((131, 128), (131, 64), (150, 128), (150, 64), (128, 128), (128, 64)):
+    for cin, cout in ((131, 64), (150, 64), (128, 64)):
         x = np.zeros((TRAIN_B, cin, *LR), np.float32)
         x[:, :3] = rng.poisson(0.3, (TRAIN_B, 3, *LR))  # counts; the hidden state zero
         x = torch.from_numpy(x).to(dev).contiguous(memory_format=torch.channels_last)
-        w = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3)).astype(np.float32) * 0.02)
-        w = w.to(dev).contiguous(memory_format=torch.channels_last)
+        conv = torch.nn.Conv2d(cin, cout, 3, padding=1).to(dev, memory_format=torch.channels_last)
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(
+                rng.standard_normal((cout, cin, 3, 3)).astype(np.float32) * 0.02))
+            conv.bias.zero_()
+        w, b = conv.weight, conv.bias
         zero = F.max_pool2d(x.abs().sum(1, keepdim=True), 3, 1, 1) == 0
-        F.conv2d(x, w, torch.zeros(cout, device=dev), padding=1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            profile_edge()
-            y = F.conv2d(x, w, torch.zeros(cout, device=dev), padding=1)
-            profile_edge()
-        kinds = sorted({e.key[:48] for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA})
-        off = int(((y != 0) & zero).sum())
-        print(f"conv algorithm {cin}->{cout} at {LR[0]}x{LR[1]}: FFT "
-              f"{any('fft' in k.lower() for k in kinds)}; outputs over all-zero patches not "
-              f"zero: {off} of {int(zero.sum()) * cout} (max |y| there "
-              f"{float((y.abs() * zero).max()):.3e}); kernels {kinds}; on {card}")
+        own, cudnn = own_conv2d(x, w, b, padding=(1, 1)), F.conv2d(x, w, b, padding=1)
+        off_own, off_cudnn = (int(((y != 0) & zero).sum()) for y in (own, cudnn))
+        rel = float((own - cudnn).abs().max() / cudnn.abs().max())
+        xg = x.clone().requires_grad_()
+        gy = torch.randn(own.shape, device=dev)
+
+        def both(route):
+            def call():
+                y = route(xg)
+                torch.autograd.grad(y, (xg, w, b), gy)
+            return call
+
+        ms_own = device_ms(both(lambda t: own_conv2d(t, w, b, padding=(1, 1))), iters=10)
+        ms_cudnn = device_ms(both(lambda t: F.conv2d(t, w, b, padding=1)), iters=10)
+        print(f"split convolution {cin}->{cout} at {LR[0]}x{LR[1]}, batch {TRAIN_B}: outputs over "
+              f"all-zero patches not zero: own kernels {off_own}, cuDNN {off_cudnn} of "
+              f"{int(zero.sum()) * cout}; own against cuDNN max rel |d| {rel:.2e} (bound 1e-5); "
+              f"forward + backward device {ms_own:.3f} ms own kernels, {ms_cudnn:.3f} ms cuDNN; "
+              f"on {card}")
+        check(off_own == 0, f"split convolution {cin}->{cout}: {off_own} outputs over all-zero "
+              "patches not zero through own_conv2d")
+        check(rel <= 1e-5, f"split convolution {cin}->{cout}: own kernels {rel:.2e} from cuDNN")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
@@ -3729,32 +3701,39 @@ def term_checks(dev, bundle: str, card: str) -> None:
                              [args[k].grad.detach().cpu().double().numpy() for k in wrt])
             return runs[key]
 
-        def distance(card_dtype, cpu_dtype):
-            (got, got_g), (ref, ref_g) = evaluate(dev, card_dtype), evaluate("cpu", cpu_dtype)
+        def distance(device, dtype, cpu_dtype=torch.float64):
+            (got, got_g), (ref, ref_g) = evaluate(device, dtype), evaluate("cpu", cpu_dtype)
             return abs(got / ref - 1), [float(np.linalg.norm(a - b) / np.linalg.norm(b))
                                         for a, b in zip(got_g, ref_g)]
 
+        def grads(said_g):
+            return ", ".join(f"d/d{k} {g:.2e}" for k, g in zip(wrt, said_g))
+
         f64, f32 = torch.float64, torch.float32
-        # (card dtype, CPU dtype, value bound or None, gradient bound or None)
-        held = {"float64": [(f32, f64, LOSS_VALUE_RTOL, LOSS_GRAD_RTOL)],
-                "piecewise": [(f32, f64, LOSS_VALUE_RTOL, None),
-                              (f64, f64, LOSS64_VALUE_RTOL, LOSS64_GRAD_RTOL)],
-                "ill": [(f32, f64, None, None),
-                        (f64, f64, LOSS64_VALUE_RTOL, LOSS64_GRAD_RTOL)]}[mode]
         label = name + (" (flow_key)" if name == "temporal_consistency" and "flow_key" in spec
                         else "")
         said = [f"value {evaluate(dev, f32)[0]:.9g} on the card in float32, "
                 f"{evaluate('cpu', f64)[0]:.9g} on the CPU in float64"]
-        for card_dtype, cpu_dtype, vtol, gtol in held:
-            rel, grel = distance(card_dtype, cpu_dtype)
-            said.append(f"card {str(card_dtype)[6:]} against CPU {str(cpu_dtype)[6:]}: value rel "
-                        f"{rel:.2e} (bound {vtol}), gradient ||d||/||g|| "
-                        + ", ".join(f"d/d{k} {g:.2e}" for k, g in zip(wrt, grel))
-                        + f" (bound {gtol})")
-            check(vtol is None or rel <= vtol,
-                  f"term {label}: value rel {rel} (card {card_dtype}, CPU {cpu_dtype})")
-            check(gtol is None or max(grel) <= gtol,
-                  f"term {label}: gradient rel {grel} (card {card_dtype}, CPU {cpu_dtype})")
+        # (card dtype, value bound, gradient bounds), each against the CPU in float64
+        strict = (f32, LOSS_VALUE_RTOL, [LOSS_GRAD_RTOL] * len(wrt))
+        if mode == "float64":
+            held = [strict]
+        else:  # the card's float32 within TERM_F32_FACTOR of the CPU float32's distance
+            v32, g32 = distance("cpu", f32)
+            said.append(f"CPU float32 against CPU float64: value rel {v32:.2e}, gradient "
+                        f"||d||/||g|| {grads(g32)}")
+            loose_v = max(LOSS_VALUE_RTOL, TERM_F32_FACTOR * v32)
+            loose_g = [max(LOSS_GRAD_RTOL, TERM_F32_FACTOR * g) for g in g32]
+            held = [(f32, LOSS_VALUE_RTOL if mode == "piecewise" else loose_v, loose_g),
+                    (f64, LOSS64_VALUE_RTOL, [LOSS64_GRAD_RTOL] * len(wrt))]
+        for card_dtype, vtol, gtol in held:
+            rel, grel = distance(dev, card_dtype)
+            said.append(f"card {str(card_dtype)[6:]} against CPU float64: value rel {rel:.2e} "
+                        f"(bound {vtol:.2e}), gradient ||d||/||g|| {grads(grel)} (bounds "
+                        + ", ".join(f"{t:.2e}" for t in gtol) + ")")
+            check(rel <= vtol, f"term {label}: value rel {rel} (card {card_dtype})")
+            check(all(g <= t for g, t in zip(grel, gtol)),
+                  f"term {label}: gradient rel {grel} above {gtol} (card {card_dtype})")
         print(f"losses term {label}: " + "; ".join(said) + f"; on {card}")
 
 
@@ -3865,7 +3844,7 @@ def percep_run(dev, mods, card: str, bundle: str, work: str, terms_ms: dict) -> 
           f"({p['band']:.0f} rasterizer, {per_iter} launched); peak memory {peak / 2**30:.2f} GiB; "
           f"losses {losses}; per-term loss on the first clip "
           + ", ".join(f"{k} {v:.6f}" for k, v in term_losses.items())
-          + "; term device ms an iteration ("
+          + "; term device ms an iteration, estimated from the timing phase's isolated calls ("
           f"{calls} steps x (2 forwards with remat + 1 backward) at batch {RGB_B}): "
           + ", ".join(f"{k} {calls * (terms_ms[k]['fwd_ms'] + terms_ms[k]['ms']):.1f}"
                       for k in ("recon", "lpips", "temporal_consistency"))
@@ -4060,7 +4039,7 @@ def main(argv=None) -> int:
         t = time_rasterizer(inputs)
         time_raw_rasterizer(dev, card)
         terms_ms = time_terms(dev, card)
-        conv_algorithms(dev, card)
+        split_convolutions(dev, card)
         t8 = time_int8(dev)
         done("timing")
     if "serve" in phases:  # early: the profiler loses records late in a long run

@@ -110,9 +110,10 @@ def join(launched):
     return results
 
 
-def random_batch(rng, empty_gt_clip=None):
+def random_batch(rng, empty_gt_clip=None, hot_gt_clip=None):
     """A compact batch of B clips x L windows at 16x16 (64 events) and
-    32x32 (256); ``empty_gt_clip``'s GT windows hold no event."""
+    32x32 (256); ``empty_gt_clip``'s GT windows hold no event,
+    ``hot_gt_clip``'s a wider range of counts than the other clips'."""
     out = {}
     for prefix, hw, n in (("inp", worker.LR, 64), ("gt", worker.GT, 256)):
         ev = np.zeros((B, L, 4, n), np.float32)
@@ -121,6 +122,8 @@ def random_batch(rng, empty_gt_clip=None):
         ev[:, :, 3] = rng.integers(0, 2, (B, L, n)) * 2 - 1
         if prefix == "gt" and empty_gt_clip is not None:
             ev[empty_gt_clip, :, 3] = 0
+        if prefix == "gt" and hot_gt_clip is not None:  # a quarter of its events on one pixel
+            ev[hot_gt_clip, :, :2, : n // 4] = 0
         out[f"{prefix}_xy"], out[f"{prefix}_p"] = compact_events(ev)
     return out
 
@@ -149,7 +152,9 @@ def save_batches(path, batches):
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """Initial parameters (JAX-initialized), three train batches, a batch
-    whose last clip is poisoned and a valid batch with an uneven mask."""
+    whose last clip is poisoned, a valid batch with an uneven mask, a raw
+    batch, and ``ranged.npz``: a batch whose last clip's GT counts range
+    wider than the others', then the same with an uneven mask."""
     work = tmp_path_factory.mktemp("dp")
     jm = JBMCNetPlain(scale=2, n_c=8, n_b=2)
     v = jm.init(jax.random.key(0), jnp.zeros((1, 2, 16, 16, 2)), *jm.init_state(1, 16, 16))
@@ -160,8 +165,10 @@ def setup(tmp_path_factory):
     poisoned = random_batch(rng, empty_gt_clip=B - 1)
     valid = dict(random_batch(rng), clip_mask=np.asarray([1, 1, 1, 0], np.float32))
     raw = raw_batch(rng)
+    ranged = random_batch(rng, hot_gt_clip=B - 1)
+    ranged_valid = dict(ranged, clip_mask=np.asarray([1, 1, 1, 0], np.float32))
     for name, bs in (("train", train), ("poisoned", [poisoned]), ("valid", [valid]),
-                     ("raw", [raw])):
+                     ("raw", [raw]), ("ranged", [ranged, ranged_valid])):
         save_batches(work / f"{name}.npz", bs)
     return work, jm, v, train, poisoned, valid, raw
 
@@ -308,6 +315,55 @@ def test_loss_terms_on_ranks_match_one_process_and_jax(world, two_ranks, four_ra
                                    atol=1e-5)
         np.testing.assert_allclose(r["terms/params"], jparams, rtol=0, atol=1e-5)
     assert float(m["train_loss"]) > float(m["train_mse_loss"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_unpinned_ssim_on_ranks_reads_the_whole_batch_range(world, two_ranks, four_ranks,
+                                                            setup):
+    """SSIM with its range unpinned reads the GT's max - min over the whole
+    batch, as the JAX mesh step (GSPMD) and the one-process step do, though
+    the ranks' rows each hold a narrower range: train step (with remat) and
+    eval step."""
+    from bmcnet_esr_tpu.losses.terms import LossContext as JLossContext
+    from bmcnet_esr_tpu.training.losses import build_extra_losses as jbuild_extra_losses
+
+    from bmcnet_esr_torch.ops.batch import counts_from_batch
+
+    work, jm, v, *_ = setup
+    with np.load(work / "ranged.npz") as z:
+        train, valid = ({k.split("/")[1]: z[k] for k in z.files if k.startswith(f"{i}/")}
+                        for i in range(2))
+    mesh = jmake_mesh(world)
+    jterms = jbuild_extra_losses(worker.RANGE_TERMS,
+                                 JLossContext(worker.LR, worker.GT, worker.SCALE))
+    jm_, jparams = jax_run(jm, v, [train], mesh, extra_losses=jterms)
+    state = worker.port_state(str(work))
+    step = make_train_step(worker.LR, worker.GT, use_remat=True,
+                           extra_losses=worker.loss_terms(worker.RANGE_TERMS))
+    _, m = step(state, {k: torch.from_numpy(x) for k, x in train.items()})
+    want_eval = jmake_parallel_eval_step(jm, worker.LR, worker.GT, mesh, extra_losses=jterms)(
+        jreplicate_tree(jax.tree.map(jnp.array, v), mesh), jshard_batch(valid, mesh))
+    one_eval = make_eval_step(worker.LR, worker.GT,
+                              extra_losses=worker.loss_terms(worker.RANGE_TERMS))(
+        worker.port_state(str(work)).model, {k: torch.from_numpy(x) for k, x in valid.items()})
+    for r in two_ranks if world == 2 else four_ranks:
+        loss, mse, gnorm = r["range"]
+        assert loss == pytest.approx(float(m["train_loss"]), rel=1e-5)
+        assert loss == pytest.approx(jm_[0]["train_loss"], rel=1e-5)
+        assert mse == pytest.approx(jm_[0]["train_mse_loss"], rel=1e-5)
+        assert gnorm == pytest.approx(float(m["grad_norm"]), rel=1e-4)
+        assert gnorm == pytest.approx(jm_[0]["grad_norm"], rel=1e-4)
+        np.testing.assert_allclose(r["range/params"], worker.flat_params(state.model), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(r["range/params"], jparams, rtol=0, atol=1e-5)
+        for k, name in enumerate(("valid_loss", "valid_mse_loss", "valid_clips")):
+            assert r["range/eval"][k] == pytest.approx(float(want_eval[name]), rel=1e-5), name
+            assert r["range/eval"][k] == pytest.approx(float(one_eval[name]), rel=1e-5), name
+    # the case tells: some rank's rows hold a narrower GT range at every step
+    gt = counts_from_batch({k: torch.from_numpy(x) for k, x in train.items()}, "gt", worker.GT)
+    for t in range(1, gt.shape[1]):
+        ranges = [float(g.max() - g.min()) for g in gt[:, t].chunk(world)]
+        assert min(ranges) < float(gt[:, t].max() - gt[:, t].min())
 
 
 def test_eval_step_with_uneven_valid_rows_matches_jax(two_ranks, setup):

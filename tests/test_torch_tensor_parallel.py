@@ -63,9 +63,10 @@ def _few_torch_threads():
     torch.set_num_threads(n)
 
 
-def clip_batch(rng, empty_gt_clip=None):
+def clip_batch(rng, empty_gt_clip=None, hot_gt_clip=None):
     """A compact batch of B clips x L windows at 16x16 (64 events) and
-    32x32 (256); ``empty_gt_clip``'s GT windows hold no event."""
+    32x32 (256); ``empty_gt_clip``'s GT windows hold no event,
+    ``hot_gt_clip``'s a wider range of counts than the other clips'."""
     out = {}
     for prefix, hw, n in (("inp", worker.LR, 64), ("gt", worker.GT, 256)):
         ev = np.zeros((B, L, 4, n), np.float32)
@@ -74,6 +75,8 @@ def clip_batch(rng, empty_gt_clip=None):
         ev[:, :, 3] = rng.integers(0, 2, (B, L, n)) * 2 - 1
         if prefix == "gt" and empty_gt_clip is not None:
             ev[empty_gt_clip, :, 3] = 0
+        if prefix == "gt" and hot_gt_clip is not None:  # a quarter of its events on one pixel
+            ev[hot_gt_clip, :, :2, : n // 4] = 0
         out[f"{prefix}_xy"], out[f"{prefix}_p"] = compact_events(ev)
     return out
 
@@ -105,6 +108,8 @@ def setup(tmp_path_factory):
     for name, bs in (("train", train), ("poisoned", [poisoned]), ("valid", [valid])):
         save_batches(work / f"{name}.npz", bs)
     np.save(work / "tp_window.npy", rng.poisson(0.3, (2, 2, *worker.LR, 2)).astype(np.float32))
+    ranged = clip_batch(rng, hot_gt_clip=B - 1)
+    save_batches(work / "ranged.npz", [ranged])
     jax_states = {}
     for variant in VARIANTS:
         jm = (JBMCNet if variant == "full" else JBMCNetPlain)(scale=2, n_c=8, n_b=2)
@@ -178,6 +183,13 @@ def one_process(setup):
     out["terms"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
                                                      "grad_norm")])
     out["terms/params"] = worker.flat_params(state.model)
+    state = worker.tp_state(work, "plain")
+    step = make_train_step(worker.LR, worker.GT, use_remat=False,
+                           extra_losses=worker.loss_terms(worker.RANGE_TERMS))
+    state, m = step(state, worker.batches(work, "ranged")[0])
+    out["range"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
+                                                     "grad_norm")])
+    out["range/params"] = worker.flat_params(state.model)
     state = worker.tp_state(work, "plain", quant="qat")
     step = make_train_step(worker.LR, worker.GT, use_remat=False)
     out["qat/losses"] = np.asarray([float(step(state, torch_batch(b))[1]["train_loss"])
@@ -323,6 +335,76 @@ def test_loss_terms_under_model_parallel(mesh, one_process, ranks):
         np.testing.assert_allclose(r["terms"][2], want[2], rtol=1e-4)
         np.testing.assert_allclose(r["terms/params"], one_process["terms/params"], rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_unpinned_ssim_under_model_parallel(mesh, one_process, ranks):
+    """SSIM with its range unpinned on a model axis of 2, on a batch whose
+    last clip's GT counts range wider: the GT's range is the whole batch's,
+    over the data axis of 2x2 and alike on the ranks of a model group, as in
+    the one-process step."""
+    want = one_process["range"]
+    for r in ranks[mesh]:
+        np.testing.assert_allclose(r["range"][:2], want[:2], rtol=1e-5)
+        np.testing.assert_allclose(r["range"][2], want[2], rtol=1e-4)
+        np.testing.assert_allclose(r["range/params"], one_process["range/params"], rtol=0,
+                                   atol=1e-5)
+
+
+def test_split_convolutions_take_pytorchs_own_kernels(ranks):
+    """Inside ``OwnConvolutions`` (the forward enters it on CUDA) every
+    float32 convolution of the channel-parallel forward, those inside the
+    model's modules included, goes through ``own_conv2d``, none of the bf16
+    ones; on the CPU the forward leaves them all to ``F.conv2d``."""
+    for r in ranks["1x2"]:
+        own32, left32 = r["conv/float32/True"].tolist()
+        own16, left16 = r["conv/bfloat16/True"].tolist()
+        assert own32 > 0 and left32 == 0
+        assert own16 == 0 and left16 == own32
+        assert r["conv/float32/None"].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("kernel", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_own_convolutions_keep_exact_zeros(dtype, kernel):
+    """Under ``OwnConvolutions`` a float32 ``F.conv2d`` runs PyTorch's own
+    kernels forward and backward: an output whose input patch is all zero is
+    exactly the bias, and the values and gradients are ``F.conv2d``'s, with
+    channels-last weights too (a 1x1 one counts as contiguous).  Other
+    dtypes, grouped and dilated convolutions are left to ``F.conv2d``."""
+    import torch.nn.functional as F
+
+    from bmcnet_esr_torch.parallel.tensor import OwnConvolutions
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((2, 5, 9, 11), generator=g).to(dtype)
+    x[:, :, :4] = 0.0  # rows 0-2 of the output see only zeros
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((6, 5, kernel, kernel), generator=g) * 0.1).to(dtype)
+    # channels-last strides as Module.to(memory_format=) lays a weight out
+    w = torch.empty_strided(w.shape, (5 * kernel**2, 1, 5 * kernel, 5), dtype=dtype).copy_(w)
+    b = torch.zeros(6, dtype=dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    ref = [t.clone().requires_grad_() for t in (x, w, b)]
+    pad = (kernel // 2, kernel // 2)
+    with OwnConvolutions():
+        y = F.conv2d(*leaves, padding=pad)
+        grouped = F.conv2d(leaves[0][:, :4], leaves[1][:, :2], groups=2)
+        dilated = F.conv2d(*leaves, padding=2, dilation=2)
+    y_ref = F.conv2d(*ref, padding=pad)
+    own = dtype == torch.float32
+    assert (type(y.grad_fn).__name__ == "SlowConv2DBackward0") == own
+    assert type(grouped.grad_fn).__name__ == type(dilated.grad_fn).__name__ == \
+        "ConvolutionBackward0"
+    if own:
+        assert torch.all(y[:, :, :3] == 0)
+    gy = torch.randn(y.shape, generator=g).to(dtype)
+    y.backward(gy)
+    y_ref.backward(gy)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 0.0, torch.float64: 0.0}[dtype]
+    torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+    for a, e in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, e.grad, rtol=tol, atol=tol)
 
 
 def test_qat_under_model_parallel(one_process, ranks):

@@ -72,7 +72,9 @@ def batches(work: str, name: str):
 
 def steps(rank: int, world: int, work: str, slices: int = 1) -> dict:
     """Three train steps on this rank's rows; then, from the initial state, a
-    guarded step on a batch whose last clip is poisoned and the eval step."""
+    guarded step on a batch whose last clip is poisoned, the eval step, and
+    steps with loss terms (SSIM's range pinned, unpinned with the eval step,
+    an event term)."""
     from bmcnet_esr_torch.parallel import (
         make_parallel_eval_step,
         make_parallel_train_step,
@@ -117,6 +119,19 @@ def steps(rank: int, world: int, work: str, slices: int = 1) -> dict:
     out["terms/params"] = flat_params(state.model)
 
     state = port_state(work)
+    step = make_parallel_train_step(LR, GT, mesh, use_remat=True,
+                                    extra_losses=loss_terms(RANGE_TERMS))
+    ranged, ranged_valid = batches(work, "ranged")
+    state, m = step(state, shard_batch(ranged, rank, world))
+    out["range"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
+                                                     "grad_norm")])
+    out["range/params"] = flat_params(state.model)
+    ev = make_parallel_eval_step(LR, GT, mesh, extra_losses=loss_terms(RANGE_TERMS))
+    m = ev(port_state(work).model, shard_batch(ranged_valid, rank, world))
+    out["range/eval"] = np.asarray([float(m[k]) for k in ("valid_loss", "valid_mse_loss",
+                                                          "valid_clips")])
+
+    state = port_state(work)
     step = make_parallel_train_step(LR, GT, mesh, use_remat=False, extra_losses=event_terms())
     state, m = step(state, shard_batch(batches(work, "raw")[0], rank, world))
     out["events"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
@@ -145,18 +160,20 @@ def event_terms():
     return (("warp", 0.1, fn),)
 
 
-# batch means, so the ranks' mean is the global batch's: SSIM's range is
-# pinned (unpinned, each rank would read its own rows' GT range)
+# batch means, so the ranks' mean is the global batch's; SSIM's range pinned
 LOSS_TERMS = {"recon": {"weight": 0.5}, "temporal_consistency": 0.1, "total_variation": 0.05,
               "ssim": {"weight": 0.1, "data_range": 8.0}}
+# SSIM's range unpinned: the GT's max - min over the whole batch, which a
+# rank's rows alone do not hold
+RANGE_TERMS = {"ssim": {"weight": 1.0}}
 
 
-def loss_terms():
+def loss_terms(spec: dict = LOSS_TERMS):
     """The count-image terms of the ``loss:`` block at this file's shapes."""
     from bmcnet_esr_torch.losses.terms import LossContext
     from bmcnet_esr_torch.training.losses import build_extra_losses
 
-    return build_extra_losses(LOSS_TERMS, LossContext(LR, GT, SCALE))
+    return build_extra_losses(spec, LossContext(LR, GT, SCALE))
 
 
 def trainer_config(work: str, datalist: str, **trainer) -> dict:
@@ -374,7 +391,8 @@ def tp_steps(rank: int, world: int, work: str, mesh, steps: int) -> dict:
 
 def tp_guard(rank: int, world: int, work: str, mesh) -> dict:
     """The guarded step on the poisoned batch (its last clip's loss is NaN),
-    and a step with the count-image loss terms."""
+    a step with the count-image loss terms and one with SSIM's range
+    unpinned."""
     from bmcnet_esr_torch.parallel import (
         ChannelGroup,
         make_parallel_train_step,
@@ -402,6 +420,14 @@ def tp_guard(rank: int, world: int, work: str, mesh) -> dict:
     out["terms"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
                                                      "grad_norm")])
     out["terms/params"] = flat_params(gather_tree(state, mesh).model)
+
+    state = shard_tree_channels(tp_state(work, "plain"), mesh)
+    step = make_parallel_train_step(LR, GT, mesh, use_remat=False,
+                                    extra_losses=loss_terms(RANGE_TERMS))
+    state, m = step(state, shard_batch(batches(work, "ranged")[0], *rows))
+    out["range"] = np.asarray([float(m[k]) for k in ("train_loss", "train_mse_loss",
+                                                     "grad_norm")])
+    out["range/params"] = flat_params(gather_tree(state, mesh).model)
     return out
 
 
@@ -480,6 +506,41 @@ def tp_extras(rank: int, world: int, work: str, mesh) -> dict:
             carry = (*carry, pred)
     out["bf16/pred"] = pred.float().numpy()
     out.update(crossing_errors(rank, world, axis))
+    out.update(conv_routes(work, mesh, x))
+    return out
+
+
+def conv_routes(work: str, mesh, x) -> dict:
+    """How many convolutions of a float32 and a bf16 forward of the full
+    model through ``ChannelParallelForward`` (the prediction and its
+    gradient) took PyTorch's own kernels (``tensor.own_conv2d``) and how
+    many were left to ``F.conv2d``: inside ``OwnConvolutions``, as the
+    forward runs on CUDA, and float32 as it runs on the CPU."""
+    import collections
+    import contextlib
+
+    from bmcnet_esr_torch.parallel import ChannelGroup, ChannelParallelForward
+    from bmcnet_esr_torch.parallel import shard_tree_channels, tensor
+
+    own, out = tensor.own_conv2d, {}
+    for dtype, route in ((torch.float32, True), (torch.bfloat16, True), (torch.float32, None)):
+        calls = collections.Counter()
+
+        def counted(*args, **kwargs):
+            y = own(*args, **kwargs)
+            calls["own" if y is not None else "conv2d"] += 1
+            return y
+
+        model = shard_tree_channels(tp_state(work, "full", dtype=dtype), mesh).model
+        fwd = ChannelParallelForward(model, ChannelGroup.of(mesh))
+        tensor.own_conv2d = counted
+        try:
+            with tensor.OwnConvolutions() if route else contextlib.nullcontext():
+                pred = fwd(x, *fwd.init_state(x.shape[0], *LR))[-1]
+            pred.float().square().sum().backward()
+        finally:
+            tensor.own_conv2d = own
+        out[f"conv/{str(dtype)[6:]}/{route}"] = np.asarray([calls["own"], calls["conv2d"]])
     return out
 
 
