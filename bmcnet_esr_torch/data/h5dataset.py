@@ -3,32 +3,40 @@
 Counterpart of ``bmcnet_esr_tpu/data/h5dataset.py``: ``SequenceConfig``,
 ``DatasetConfig`` (with ``from_dict``), ``ScaleLayout``,
 ``resolve_scale_layout``, ``EventH5Dataset.get_window`` and
-``EventSequenceDataset.get_clip``, with the same windowing (``events`` and
-``time`` modes), count-based GT alignment, fixed zero-padded ``[4, N]``
-float32 windows and the same numpy random draws: seeded H/V/polarity flips
+``EventSequenceDataset.get_clip``, with the same windowing (``events``,
+``time`` and ``frame`` modes), count-based GT alignment, fixed zero-padded
+``[4, N]`` float32 windows, GT frames (``need_gt_frame``: the stored frame
+nearest a window's middle, bicubic-resized to the GT grid with ``cv2``,
+imported on use) and the same numpy random draws: seeded H/V/polarity flips
 (one ``default_rng(seed + offset)`` draw per mechanism), uniform noise
 events (``seed + 17``), the running hot-pixel filter (counted through
 :func:`bmcnet_esr_torch.ops.encodings.events_to_channels` on the CPU, in the
 same y-flipped raster coordinates as the JAX package's native counter) and
-pause windows.  ``h5py`` is imported when a file is opened, so the package
-imports without it.
+pause windows.  The host-side auxiliary encodings (``create_*``) run the
+port's encoders on CPU tensors.  ``h5py`` is imported when a file is
+opened, so the package imports without it.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP.md Queue 1
-item 4): ``frame`` mode, ``need_gt_frame`` and the host-side auxiliary
-encodings other than the count image.
+One deliberate difference: the stored frames (``ori_images``) are ordered
+by their ``timestamp`` attribute, ties by the number their name ends in,
+so ``frame_ts`` is ascending whatever the names; the JAX package sorts the
+names as text, which puts ``image10`` before ``image2``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from bmcnet_esr_torch.ops.encodings import events_to_channels
-
-DATA_TODO = "not ported yet (ROADMAP.md Queue 1 item 4)"
+from bmcnet_esr_torch.ops.encodings import (
+    events_to_channels,
+    events_to_stack_no_polarity,
+    events_to_voxel,
+)
+from bmcnet_esr_torch.ops.resize import resize_bicubic
 
 _DOWN_FACTOR = {"ori": 1, "down2": 2, "down4": 4, "down8": 8, "down16": 16}
 _FACTOR_PREFIX = {1: "ori", 2: "down2", 4: "down4", 8: "down8", 16: "down16"}
@@ -238,19 +246,32 @@ def resolve_scale_layout(
     return ScaleLayout(ori_scale, _FACTOR_PREFIX[gt_factor], inp_res, gt_res, inp_down_res)
 
 
+def _cpu_rows(events: np.ndarray):
+    """``[4, N]`` events -> four float32 CPU tensors (x, y, t, p)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(r, np.float32)) for r in events)
+
+
+def frame_order(f) -> Tuple[List[str], np.ndarray]:
+    """The stored frames of ``ori_images`` in time order: their names and
+    ``timestamp`` attributes, sorted by timestamp, ties by the number the
+    name ends in (``image2`` before ``image10``), then by name.  Returns
+    ``([], empty)`` for a file without frames."""
+    if "ori_images" not in f:
+        return [], np.zeros(0, np.float64)
+    grp = f["ori_images"]
+    entries = []
+    for name in grp.keys():
+        m = re.search(r"(\d+)$", name)
+        entries.append((float(grp[name].attrs["timestamp"]), int(m.group(1)) if m else -1, name))
+    entries.sort()
+    return [e[2] for e in entries], np.array([e[0] for e in entries], np.float64)
+
+
 class EventH5Dataset:
     """Windowed view over one multi-scale event h5 file; items are
     fixed-size zero-padded raw-event windows."""
 
     def __init__(self, h5_path: str, config: DatasetConfig):
-        unported = [
-            name for name, on in (
-                ("mode='frame'", config.mode == "frame"),
-                ("need_gt_frame", config.need_gt_frame),
-            ) if on
-        ]
-        if unported:
-            raise NotImplementedError(f"dataset options {unported}: {DATA_TODO}")
         import h5py
 
         self.path = h5_path
@@ -274,6 +295,12 @@ class EventH5Dataset:
                 self.num_gt_events = f[f"{self.layout.gt_prefix}_events/ts"].shape[0]
             else:
                 self.num_gt_events = 0
+            if config.need_gt_frame or config.mode == "frame":
+                self.frame_names, self.frame_ts = frame_order(f)
+                self.num_frames = len(self.frame_names)
+            else:
+                self.frame_ts = None
+                self.num_frames = 0
             self.duration = self.tk - self.t0
             self.window = config.window
             self.sliding_window = config.sliding_window
@@ -319,6 +346,13 @@ class EventH5Dataset:
             idx1 = _stream_searchsorted(inp_ts, starts + self.window, "left")
             idx1 = np.minimum(idx1, self.num_events - 1)
             self.event_indices = np.stack([idx0, idx1], 1)
+        elif cfg.mode == "frame":
+            # one window between each two consecutive stored frames
+            max_length = max(self.num_frames - 1, 0)
+            self.length = min(cfg.dataset_length or max_length, max_length)
+            bounds = _stream_searchsorted(inp_ts, self.frame_ts[: self.length + 1], "left")
+            bounds = np.minimum(bounds, self.num_events - 1)
+            self.event_indices = np.stack([bounds[:-1], bounds[1:]], 1)
         else:
             raise ValueError(f"invalid data mode {cfg.mode!r}")
 
@@ -440,7 +474,7 @@ class EventH5Dataset:
     def create_cnt_encoding(events: np.ndarray, resolution) -> np.ndarray:
         """``[2, H, W]`` float32 count image of ``[4, N]`` events
         (h5dataset.py:518-526): y flipped, out-of-range events dropped."""
-        xs, ys, _, ps = (torch.from_numpy(np.ascontiguousarray(r, np.float32)) for r in events)
+        xs, ys, _, ps = _cpu_rows(events)
         return events_to_channels(xs, ys, ps, tuple(resolution)).numpy()
 
     def update_hot_mask(self, count_image: np.ndarray, max_px=100, min_obvs=5, max_rate=0.8):
@@ -510,7 +544,106 @@ class EventH5Dataset:
         else:
             item["gt_events"] = np.zeros((4, 1), np.float32)
             item["gt_len"] = 0
+        if cfg.need_gt_frame and self.num_frames:
+            item["gt_frame"] = self._gt_frame(i0, i1, seed)
         return item
+
+    def _gt_frame(self, i0: int, i1: int, seed: int) -> np.ndarray:
+        """The stored frame nearest the window's middle event (the first at
+        or after its timestamp, clamped), flipped as the window, resized to
+        the GT grid (bicubic, ``cv2``), ``[C, H, W]`` float32 in [0, 1]."""
+        import cv2
+
+        mid_ts = self.file[f"{self.layout.inp_prefix}_events/ts"][(i0 + i1) // 2]
+        gi = int(np.searchsorted(self.frame_ts, mid_ts, "left"))
+        gi = min(max(gi, 0), self.num_frames - 1)
+        img = self.file[f"ori_images/{self.frame_names[gi]}"][:]
+        if self.config.augment.enabled:
+            img = self.augment_frame(img, seed)
+        img = cv2.resize(img, dsize=tuple(self.layout.gt_resolution[::-1]),
+                         interpolation=cv2.INTER_CUBIC).astype(np.float32) / 255.0
+        return img[None] if img.ndim == 2 else img.transpose(2, 0, 1)
+
+    # -- auxiliary encodings (reference h5dataset.py:425-516) ---------------
+
+    @staticmethod
+    def normalize_events(events: np.ndarray, resolution) -> np.ndarray:
+        """(x, y) -> [0, 1] (``create_normalized_events``)."""
+        out = np.asarray(events, np.float32).copy()
+        out[0] = out[0] / resolution[1]
+        out[1] = out[1] / resolution[0]
+        return out
+
+    def create_voxel_encoding(self, events: np.ndarray, resolution) -> np.ndarray:
+        """``[time_bins, H, W]`` voxel grid."""
+        xs, ys, ts, ps = _cpu_rows(events)
+        return events_to_voxel(xs, ys, ts, ps, self.config.time_bins, tuple(resolution)).numpy()
+
+    def create_stack_encoding(self, events: np.ndarray, resolution) -> np.ndarray:
+        """``[time_bins, H, W]`` signed stack."""
+        xs, ys, ts, ps = _cpu_rows(events)
+        return events_to_stack_no_polarity(
+            xs, ys, ts, ps, self.config.time_bins, tuple(resolution)).numpy()
+
+    def create_scaled_encoding(self, normalized_events: np.ndarray, resolution, mode: str):
+        """Normalized events at another resolution: a count image
+        (``cnt``), a stack (``stack``) or the events with floored
+        coordinates (``events``)."""
+        ev = np.asarray(normalized_events, np.float32).copy()
+        ev[0] = ev[0] * resolution[1]
+        ev[1] = ev[1] * resolution[0]
+        if mode == "cnt":
+            return self.create_cnt_encoding(ev, resolution)
+        if mode == "stack":
+            return self.create_stack_encoding(ev, resolution)
+        if mode == "events":
+            ev[0] = np.floor(ev[0])
+            ev[1] = np.floor(ev[1])
+            return ev
+        raise ValueError(f"mode {mode!r} is not supported")
+
+    def create_unsupervised_data(self, normalized_events: np.ndarray):
+        """Count pairs for unsupervised recipes: the events quantized to the
+        down grid, counted there and at the input grid, each count divided
+        by ``scale**2`` and truncated."""
+        down_res = self.layout.inp_down_resolution
+        ev = np.asarray(normalized_events, np.float32).copy()
+        down = ev.copy()
+        down[0] = np.floor(ev[0] * down_res[1])
+        down[1] = np.floor(ev[1] * down_res[0])
+        down_norm = self.normalize_events(down, down_res)
+        s2 = self.config.scale**2
+        inp_down_cnt = np.trunc(self.create_scaled_encoding(down_norm, down_res, "cnt") / s2)
+        inp_down_scaled_cnt = np.trunc(
+            self.create_scaled_encoding(down_norm, self.layout.inp_resolution, "cnt") / s2
+        )
+        return inp_down_cnt, inp_down_scaled_cnt
+
+    def create_custom_data(self, inp_cnt, inp_scaled_cnt, inp_down_cnt, inp_down_scaled_cnt,
+                           gt_cnt):
+        """Every stream bicubic-resized to ``custom_resolution`` (times the
+        stream's scale) and rounded."""
+        if self.config.custom_resolution is None:
+            raise ValueError("custom_resolution is not configured")
+        cr = tuple(self.config.custom_resolution)
+        s = self.config.scale
+
+        def rz(img_chw, out_hw):
+            x = torch.from_numpy(np.ascontiguousarray(img_chw, np.float32))
+            return torch.round(resize_bicubic(x, tuple(out_hw), channel_last=False)).numpy()
+
+        return (
+            rz(inp_cnt, cr),
+            rz(inp_scaled_cnt, (cr[0] * s, cr[1] * s)),
+            rz(inp_down_cnt, (round(cr[0] / s), round(cr[1] / s))),
+            rz(inp_down_scaled_cnt, cr),
+            rz(gt_cnt, (cr[0] * s, cr[1] * s)),
+        )
+
+    @staticmethod
+    def create_polarity_mask(ps: np.ndarray) -> np.ndarray:
+        """``[N, 2]`` polarity mask: ``max(p, 0)`` and ``-min(p, 0)``."""
+        return np.stack([np.maximum(ps, 0), -np.minimum(ps, 0)], axis=1)
 
 
 class EventSequenceDataset:

@@ -1,4 +1,4 @@
-"""Build a CUDA source under ``csrc/`` into a shared library and load it.
+"""Build a source under ``csrc/`` into a shared library and load it.
 
 Each kernel source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` (Hopper) into ``bmcnet_esr_torch/_build/<hash>/``, where the hash
@@ -44,6 +44,8 @@ NVCC_FLAGS = (
 H100_SMS = 132
 SMEM_LIMIT = 232_448
 
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -75,6 +77,22 @@ def load_library(source: str) -> ctypes.CDLL:
     return lib
 
 
+def load_host_library(source: str) -> ctypes.CDLL:
+    """Compile the host C++ source ``csrc/<source>`` with ``c++`` (once per
+    hash of the source and ``HOST_FLAGS``) and ``dlopen`` it."""
+    with _LOCK:
+        lib = _LOADED.get(source)
+    if lib is None:
+        src = os.path.join(CSRC, source)
+        compiler = shutil.which("c++") or shutil.which("g++")
+        if compiler is None:
+            raise RuntimeError(f"no C++ compiler (c++ or g++) on PATH to build {source}")
+        lib = ctypes.CDLL(_compile([compiler, *HOST_FLAGS], src, [src]))
+        with _LOCK:
+            lib = _LOADED.setdefault(source, lib)
+    return lib
+
+
 def build_all(sources: Sequence[str]) -> None:
     """Build several sources at once, one ``nvcc`` process each."""
     with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
@@ -83,26 +101,34 @@ def build_all(sources: Sequence[str]) -> None:
 
 def _build_and_load(source: str) -> ctypes.CDLL:
     src = os.path.join(CSRC, source)
-    sha = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    return ctypes.CDLL(_compile([find_nvcc(), *NVCC_FLAGS], src, [src, *headers]))
+
+
+def _compile(compiler_and_flags: Sequence[str], src: str, hashed: Sequence[str]) -> str:
+    """Build ``src`` into ``_build/<hash>/<name>.so`` unless it is there;
+    the hash covers the command's flags and the files ``hashed``.  The
+    compiler writes a temporary file that is renamed into place, so a
+    concurrent build or load never sees half a library.  Returns the path."""
+    sha = hashlib.sha256(" ".join(compiler_and_flags[1:]).encode())
+    for path in hashed:
         with open(path, "rb") as f:
             sha.update(f.read())
-    digest = sha.hexdigest()[:16]
-    out_dir = os.path.join(BUILD_DIR, digest)
-    lib = os.path.join(out_dir, os.path.splitext(source)[0] + ".so")
+    out_dir = os.path.join(BUILD_DIR, sha.hexdigest()[:16])
+    name = os.path.splitext(os.path.basename(src))[0]
+    lib = os.path.join(out_dir, name + ".so")
     if not os.path.isfile(lib):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run([*compiler_and_flags, "-o", tmp, src],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {source}:\n{proc.stderr}"
-            )
-        with open(os.path.splitext(lib)[0] + ".log", "w") as f:
+            raise RuntimeError(f"{os.path.basename(compiler_and_flags[0])} failed "
+                               f"({proc.returncode}) for {os.path.basename(src)}:\n{proc.stderr}")
+        with open(os.path.join(out_dir, name + ".log"), "w") as f:
             f.write(proc.stderr)
         os.replace(tmp, lib)
-    return ctypes.CDLL(lib)
+    return lib
 
 
 def device_kind(*ts: torch.Tensor) -> str:

@@ -7,7 +7,9 @@ of the JAX package, bit for bit);
 ``batch_events_to_counts`` / ``batch_counts_from_compact`` rasterize
 ``[..., 4, N]`` raw or compact windows into ``[..., H, W, 2]`` NHWC count
 images through :mod:`bmcnet_esr_torch.kernels.rasterize` (the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors); ``counts_from_batch``
+CUDA tensors, its plain version for CPU tensors);
+``batch_events_to_voxels`` makes ``[..., H, W, B]`` voxel grids
+(``batch.py:49``); ``counts_from_batch``
 picks the form a batch carries; ``sliding_pairs`` is the stride-1 window
 pairing.
 """
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from bmcnet_esr_torch.kernels import rasterize
+from bmcnet_esr_torch.ops.encodings import events_to_voxel
 
 
 def batch_events_to_counts(events: torch.Tensor, sensor_size: Tuple[int, int]) -> torch.Tensor:
@@ -28,6 +31,17 @@ def batch_events_to_counts(events: torch.Tensor, sensor_size: Tuple[int, int]) -
     flat = events.reshape((-1,) + tuple(events.shape[-2:])).contiguous()
     imgs = rasterize.counts_from_events(flat, sensor_size)
     return imgs.reshape(tuple(lead) + tuple(imgs.shape[1:]))
+
+
+def batch_events_to_voxels(
+    events: torch.Tensor, num_bins: int, sensor_size: Tuple[int, int]
+) -> torch.Tensor:
+    """``[..., 4, N]`` padded events -> ``[..., H, W, num_bins]`` voxel grids."""
+    lead = events.shape[:-2]
+    flat = events.reshape((-1,) + tuple(events.shape[-2:]))
+    vox = torch.stack([events_to_voxel(e[0], e[1], e[2], e[3], num_bins, sensor_size)
+                       for e in flat])
+    return vox.permute(0, 2, 3, 1).reshape(tuple(lead) + tuple(sensor_size) + (num_bins,))
 
 
 def compact_events(events) -> Tuple[np.ndarray, np.ndarray]:

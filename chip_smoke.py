@@ -56,7 +56,9 @@ failure:
    width through ``Trainer`` on seeded in-memory batches: 13 iterations with
    a validation pass and a checkpoint, a resume from it that repeats the
    last two iterations exactly (``Trainer`` sets cuDNN deterministic itself),
-   then float32 and bfloat16 with remat off and on, and float32 remat off
+   ``skip_nonfinite`` and the EMA at full width (a batch with a NaN leaves
+   every parameter and the Adam state bit-identical and is counted as
+   skipped; the EMA equals the update done by hand in float64), then float32 and bfloat16 with remat off and on, and float32 remat off
    with the deterministic flag off, each timed (ms/iteration, device busy
    and idle share, launches, peak memory) with a falling loss on a fixed
    batch and exactly two rasterizer kernels an iteration in the profile;
@@ -122,7 +124,21 @@ failure:
    consistency, remat, ``grad_accum: 2``) at full width through ``Trainer``
    with a resume that repeats an iteration bit for bit, timed and profiled;
    and the raw-transfer case with an event term attached through ``fn:``
-   and a bit-identical resume.
+   and a bit-identical resume;
+12. video -> events on the card (after phase 6, before phase 8): the demo
+   video at the NFS preset's 360x640, 65 frames at 240 frames a second,
+   simulated at scales 1, 2, 4 and 8 (``data/simulator.py``, 16 crossings
+   a pixel, 8 intervals a chunk): (a) with threshold mismatch drawn on the
+   host, refractory and leak on, the card's event lists bit-identical to
+   the CPU's plain run of the same code; (b) with noise and hot pixels,
+   ``simulate_counts`` equal to ``simulate``'s per-interval counts, the
+   noise Poisson at its rate and the hot pixels at their gain, within 4
+   sigma; (c) the down8 stream cut into the NFS recipe's windows, 32 pairs
+   through ``InferenceEngine.infer_windows`` with the full BMCNet, the
+   rasterizer's counts of every window equal to ``events_to_channels``;
+   (d) the auxiliary encodings of 8 windows, card against CPU; (e) ms an
+   interval, events/s, peak memory, a profiled chunk's idle share, and the
+   native redistribution against numpy on the host.
 
 Every kernel is called through its ``torch.library`` operator; the
 rasterizer's ``out=`` form through the operator's ``.into`` overload.  The
@@ -1341,6 +1357,92 @@ def train_goldens(dev) -> None:
     check(rel <= TRAJ_RTOL, f"trajectory rel |d| {rel} > {TRAJ_RTOL}")
 
 
+GUARD_EMA = 0.5        # the guard run's EMA decay: each update moves it half way
+GUARD_EMA_RTOL = 1e-6  # the EMA against float64 by hand, relative to each tensor's largest
+
+
+def train_guards(dev, mods, work: str, card: str) -> int:
+    """``skip_nonfinite`` and the EMA at full width: the NFS recipe through
+    ``Trainer`` with ``trainer.skip_nonfinite`` and ``trainer.ema``, on raw
+    float32 batches, the third with a NaN polarity in its input.  The two
+    good iterations' EMA equals the same update done by hand in float64;
+    the NaN iteration is counted as skipped and leaves every parameter, the
+    Adam state and the update count bit-identical.  Returns the
+    rasterizer's launches."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.training import Trainer
+    from bmcnet_esr_torch.training.config import RunConfig
+
+    cfg = _recipe(work, 3, 10**6)
+    cfg["trainer"].update(skip_nonfinite=True, ema=GUARD_EMA)
+    cfg["trainer"]["iteration_based_train"]["train_log_step"] = 1
+    del cfg["valid_dataloader"]
+    data = raw_batches(np.random.default_rng(17), 3)
+    data[2]["inp_events"][0, 3, 3, 100] = np.nan
+    tr = Trainer(RunConfig(cfg, runid="guards"), train_loader=MemoryLoader(data, compact=False),
+                 seed=0, device=dev)
+
+    def snap(state, metrics=None):
+        opt = {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in st.items()}
+               for i, st in state.optimizer.state_dict()["state"].items()}
+        return {"params": {n: p.detach().clone() for n, p in state.model.named_parameters()},
+                "ema": {n: e.clone() for n, e in state.ema.items()}, "opt": opt,
+                "updates": state.updates, "metrics": metrics}
+
+    snaps = [snap(tr.state)]
+    step = tr.train_step
+
+    def snapping(state, batch):
+        state, m = step(state, batch)
+        snaps.append(snap(state, m))
+        return state, m
+
+    tr.train_step = snapping
+    zero_counts(mods)
+    tr.train()
+    launches = mods["rasterize"].launches
+    check(launches == 2 * 3, f"guards: {launches} rasterizer launches in 3 iterations")
+    skipped = [int(s["metrics"]["train_skipped"]) for s in snaps[1:]]
+    check(skipped == [0, 0, 1] and tr.skipped_steps == 1,
+          f"guards: skipped {skipped}, Trainer counted {tr.skipped_steps}")
+    before, after = snaps[2], snaps[3]
+    same_params = all(torch.equal(after["params"][n], p) for n, p in before["params"].items())
+    same_opt = before["opt"].keys() == after["opt"].keys() and all(
+        torch.equal(v, after["opt"][i][k]) if torch.is_tensor(v) else v == after["opt"][i][k]
+        for i, st in before["opt"].items() for k, v in st.items())
+    check(same_params and same_opt and after["updates"] == before["updates"] == 2,
+          f"guards: the NaN step changed the state (parameters equal {same_params}, Adam state "
+          f"equal {same_opt}, updates {before['updates']} -> {after['updates']})")
+    # the EMA by hand in float64: it starts at the initial parameters and
+    # moves on every step, the skipped one too (towards unchanged parameters)
+    hand = {n: p.double() for n, p in snaps[0]["params"].items()}
+    worst, moved = 0.0, 0.0
+    for k in (1, 2, 3):
+        for n, p in snaps[k]["params"].items():
+            hand[n] = GUARD_EMA * hand[n] + (1 - GUARD_EMA) * p.double()
+            e = snaps[k]["ema"][n].double()
+            scale = float(hand[n].abs().max())
+            if scale > 0:
+                worst = max(worst, float((e - hand[n]).abs().max()) / scale)
+                if k == 2:
+                    moved = max(moved, float((e - snaps[0]["params"][n].double()).abs().max())
+                                / scale)
+    check(worst <= GUARD_EMA_RTOL and moved > 10 * GUARD_EMA_RTOL,
+          f"guards: the EMA is {worst:.3e} from float64 by hand (bound {GUARD_EMA_RTOL}), "
+          f"moved {moved:.3e} from the initial parameters")
+    losses = [float(s["metrics"]["train_loss"]) for s in snaps[1:]]
+    print(f"train guards (NFS recipe at full width, skip_nonfinite, ema {GUARD_EMA}): losses "
+          f"{losses}; the NaN batch skipped ({skipped}, Trainer.skipped_steps "
+          f"{tr.skipped_steps}), every parameter, the Adam state and the update count "
+          f"bit-identical across it; the EMA after iterations 1-3 within {worst:.3e} of the "
+          f"float64 update by hand (bound {GUARD_EMA_RTOL:g}, relative to each tensor's largest "
+          f"magnitude; it moved {moved:.3e} from the initial parameters); {launches} rasterizer "
+          f"launches; on {card}")
+    return launches
+
+
 def phase_train(dev, card: str) -> dict:
     """The training path at the NFS recipe's full width (full BMCNet, n_c=128,
     n_b=5, x4, batch 2, L=9, 45x80 -> 180x320) through ``Trainer``, on
@@ -1410,6 +1512,7 @@ def phase_train(dev, card: str) -> dict:
         check(torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark,
               "Trainer did not leave cuDNN deterministic")
         del tr, res
+        launches += train_guards(dev, mods, tmp, card)
 
         # fp32 and bf16, remat off (the recipe) and on: on one fixed batch,
         # warm-up and timed iterations, then 1 + prof under the profiler
@@ -3983,8 +4086,385 @@ def phase_losses(dev, card: str, terms_ms=None) -> dict:
     return {"rasterize_counts": launches + raw}
 
 
-PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing", "serve", "export", "train",
-          "losses", "parallel")
+# The generate phase (video -> events on the card): the NFS preset's grid
+# (data/synthesis.py), the demo video rendered there at 240 frames a second,
+# simulated at scales 1, 2, 4 and 8 (down8 = 45x80, the recipe's input).
+GEN_FRAMES, GEN_FPS, GEN_SCALES = 65, 240.0, (1, 2, 4, 8)
+GEN_WINDOWS = 32          # (c): window pairs through the engine (33 input windows)
+GEN_ENC_BATCH = 8         # (d): windows through the encodings
+GEN_TIME_BINS = 5         # (d): stack and voxel bins
+# (a): if the card's event list is not bit-identical to the CPU's, the
+# share of flipped crossings and the timestamp difference it is held to
+GEN_FLIP_SHARE, GEN_T_ATOL = 1e-6, 1e-6
+GEN_VOXEL_RTOL = 1e-5     # (d): relative to each grid's largest magnitude
+
+
+def gen_config(**kw):
+    """The phase's simulator: mismatch thresholds (drawn on the host),
+    refractory and leak on, 16 crossings a pixel an interval, 8 intervals a
+    chunk, noise off unless ``kw`` turns it on."""
+    from bmcnet_esr_torch.data.simulator import SimulatorConfig
+
+    return SimulatorConfig(**{**dict(threshold_sigma=0.1, refractory_s=5e-4, leak_rate_hz=1.0,
+                                     max_events_per_pixel=16, chunk=8), **kw})
+
+
+def interval_blocks(ev, per_interval, ts, hw):
+    """``[T - 1, 2, H, W]`` counts of an event list whose rows come interval
+    by interval, ``per_interval`` rows each; every row must lie in its
+    interval's span."""
+    import numpy as np
+
+    h, w = hw
+    which = np.repeat(np.arange(len(per_interval)), per_interval)
+    t0, t1 = ts[which], ts[which + 1]
+    check(np.all((ev[:, 2] >= t0) & (ev[:, 2] <= t1 + 1e-9)),
+          "an event lies outside its interval's span")
+    flat = ((which * 2 + (ev[:, 3] < 0)) * h + ev[:, 1].astype(np.int64)) * w + ev[:, 0].astype(
+        np.int64)
+    return np.bincount(flat, minlength=len(per_interval) * 2 * h * w).reshape(-1, 2, h, w)
+
+
+def gen_exact(dev, pyramid, ts, card: str) -> dict:
+    """(a) Per scale, thresholds drawn once on the host: the card's event
+    list against the CPU's plain run of the same code.  Returns the card's
+    streams by scale, the scale-1 run's wall time, events and peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.data.simulator import EventSimulator, simulator_state_from_jax
+
+    rng = np.random.default_rng(21)
+    streams, stats = {}, {}
+    for i, s in enumerate(GEN_SCALES):
+        fs = pyramid[s]
+        hw = fs.shape[1:]
+        cfg = dataclasses.replace(gen_config(), seed=i)
+        c = [np.maximum(np.float32(cfg.contrast_threshold) * (1 + np.float32(cfg.threshold_sigma)
+                        * rng.standard_normal(hw).astype(np.float32)), cfg.threshold_min)
+             for _ in range(2)]
+        gain = np.ones(hw, np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        got = EventSimulator(hw, cfg, device=dev,
+                             state=simulator_state_from_jax(*c, gain, device=dev)).simulate(fs, ts)
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev)
+        t = time.perf_counter()
+        want = EventSimulator(hw, cfg, device="cpu",
+                              state=simulator_state_from_jax(*c, gain)).simulate(fs, ts)
+        cpu_wall = time.perf_counter() - t
+        check(len(want) > 1000, f"scale {s}: only {len(want)} events")
+        same = got.shape == want.shape and np.array_equal(got, want)
+        if same:
+            verdict = "bit-identical (length, rows, order)"
+        else:
+            flipped = int(np.abs(_event_image(got, hw) - _event_image(want, hw)).sum())
+            dt = (float(np.abs(np.sort(got[:, 2]) - np.sort(want[:, 2])).max())
+                  if got.shape == want.shape else float("inf"))
+            verdict = (f"NOT bit-identical: {len(got)} vs {len(want)} events, {flipped} flipped "
+                       f"crossings (bound {GEN_FLIP_SHARE:g} of the events), largest timestamp "
+                       f"difference {dt:.3e} s (bound {GEN_T_ATOL:g})")
+            check(flipped <= GEN_FLIP_SHARE * len(want) and dt <= GEN_T_ATOL, verdict)
+        print(f"generate (a) scale {s} ({hw[0]}x{hw[1]}): {len(got)} events over "
+              f"{len(ts) - 1} intervals, card {wall:.3f} s, CPU {cpu_wall:.3f} s; card against "
+              f"CPU: {verdict}; on {card}")
+        streams[s] = got
+        if s == 1:
+            stats = {"wall": wall, "events": len(got), "peak": peak}
+    return streams, stats
+
+
+def _event_image(ev, hw):
+    """``[2, H, W]`` counts of an event list (positive, negative)."""
+    import numpy as np
+
+    h, w = hw
+    flat = ((ev[:, 3] < 0) * h + ev[:, 1].astype(np.int64)) * w + ev[:, 0].astype(np.int64)
+    return np.bincount(flat, minlength=2 * h * w).reshape(2, h, w)
+
+
+def gen_noise(dev, frames, ts, card: str) -> None:
+    """(b) Noise and hot pixels on the card at 360x640: ``simulate_counts``
+    of one simulator equals the per-interval counts of ``simulate`` of
+    another of the same seed; on a static scene (leak off) the cold pixels'
+    mean count lies within 4 sigma of the Poisson mean, their index of
+    dispersion within 4 sigma of 1, and the hot pixels' rate ratio within 4
+    sigma of ``hot_pixel_gain``."""
+    import dataclasses
+
+    import numpy as np
+
+    from bmcnet_esr_torch.data.simulator import EventSimulator
+
+    hw = frames.shape[1:]
+    cfg = gen_config(noise_rate_hz=20.0, hot_pixel_fraction=0.01, hot_pixel_gain=10.0, seed=7)
+    ev = EventSimulator(hw, cfg, device=dev).simulate(frames, ts)
+    cnt = EventSimulator(hw, cfg, device=dev).simulate_counts(frames, ts)
+    per = cnt.reshape(len(cnt), -1).sum(1).astype(np.int64)
+    check(per.sum() == len(ev), f"simulate_counts holds {per.sum()} events, simulate {len(ev)}")
+    blocks = interval_blocks(ev, per, ts, hw)
+    check(np.array_equal(blocks, cnt), "simulate_counts differs from simulate's per-interval counts")
+    print(f"generate (b) noise and hot pixels on the demo video: {len(ev)} events, "
+          f"simulate_counts equal to simulate's per-interval counts in all {len(cnt)} intervals")
+
+    static = np.full_like(frames, 0.5)
+    sim = EventSimulator(hw, dataclasses.replace(cfg, leak_rate_hz=0.0), device=dev)
+    total = sim.simulate_counts(static, ts).sum((0, 1))
+    hot = sim.hot_pixels
+    lam = cfg.noise_rate_hz * (ts[-1] - ts[0])
+    cold = total[~hot]
+    n_cold, n_hot = int((~hot).sum()), int(hot.sum())
+    mean, disp = float(cold.mean()), float(cold.var() / cold.mean())
+    ratio = float(total[hot].mean() / mean)
+    s_mean = np.sqrt(lam / n_cold)
+    s_disp = np.sqrt((lam + 2 * lam**2) / n_cold) / lam
+    g = cfg.hot_pixel_gain
+    s_ratio = g * np.sqrt(1 / (lam * g * n_hot) + 1 / (lam * n_cold))
+    print(f"generate (b) static scene, noise {cfg.noise_rate_hz} Hz, {n_hot} hot pixels of "
+          f"{hot.size} at gain {g}: cold mean {mean:.5f} events a pixel (Poisson mean "
+          f"{lam:.5f}, {abs(mean - lam) / s_mean:.2f} sigma), index of dispersion {disp:.5f} "
+          f"({abs(disp - 1) / s_disp:.2f} sigma from 1), hot/cold ratio {ratio:.4f} "
+          f"({abs(ratio - g) / s_ratio:.2f} sigma from {g}); on {card}")
+    check(abs(mean - lam) <= 4 * s_mean, "the noise rate is off its Poisson mean")
+    check(abs(disp - 1) <= 4 * s_disp, "the noise counts are not Poisson-dispersed")
+    check(abs(ratio - g) <= 4 * s_ratio, "the hot pixels' rate ratio is off the gain")
+
+
+def gen_windows(down8, down2, n: int):
+    """The NFS recipe's windows of the down8 stream (2048 events, sliding
+    1024) and their GT windows of the down2 stream (16 x 2048 events from
+    the first at or after the window's start, shifted back at the end), as
+    ``[n, 1, 4, N]`` float32 events with timestamps normalized per window."""
+    import numpy as np
+
+    def window(ev, i0, i1):
+        w = ev[i0:i1].T.astype(np.float32)
+        w[2] = (w[2] - w[2, 0]) / (w[2, -1] - w[2, 0] + 1e-6)
+        return w
+
+    stride, size, gt_size = N_LR // 2, N_LR, SCALE**2 * N_LR
+    check(stride * (n - 1) + size <= len(down8), f"{len(down8)} down8 events hold no {n} windows")
+    inp = np.stack([window(down8, stride * i, stride * i + size) for i in range(n)])
+    g0 = np.searchsorted(down2[:, 2], down8[stride * np.arange(n), 2], "left")
+    g0 = np.minimum(g0, len(down2) - 1 - gt_size)
+    gt = np.stack([window(down2, a, a + gt_size) for a in g0])
+    return inp[:, None], gt[:, None]
+
+
+def gen_engine(dev, mods, inp, gt, card: str) -> int:
+    """(c) The down8 windows through ``InferenceEngine.infer_windows`` with
+    the full BMCNet (n_c=128, n_b=5, x4, seeded weights): finite outputs;
+    every window's counts from the rasterizer kernel equal to the plain
+    ``events_to_channels``.  Returns the rasterizer's launches in the run."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.data import DatasetConfig
+    from bmcnet_esr_torch.inference import InferenceEngine
+    from bmcnet_esr_torch.models import BMCNet
+    from bmcnet_esr_torch.ops.batch import batch_counts_from_compact, compact_events
+    from bmcnet_esr_torch.ops.encodings import events_to_channels
+
+    ci, cg = compact_events(inp), compact_events(gt)
+
+    def load_chunk(pos, steps):
+        return ((ci[0][pos : pos + steps + 1], ci[1][pos : pos + steps + 1]),
+                (cg[0][pos : pos + steps], cg[1][pos : pos + steps]))
+
+    m = BMCNet(scale=SCALE, n_c=128, n_b=5)
+    m.load_state_dict(seeded_full_weights(m))
+    eng = InferenceEngine(m, DatasetConfig(scale=SCALE), chunk_size=CHUNK, visualize=False,
+                          device=dev)
+    eng.infer_windows(load_chunk, 2, LR, GT)  # warm-up, outside the counts
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    t = time.perf_counter()
+    r = eng.infer_windows(load_chunk, GEN_WINDOWS, LR, GT, return_per_window=True)
+    wall = time.perf_counter() - t
+    got = counts(mods)
+    check(got["rasterize_counts"] > 0 and sum(got.values()) == got["rasterize_counts"],
+          f"generate (c): launches {got}, expected rasterizer launches only")
+    esr = np.asarray(r["per_window"]["esr_mse"])
+    check(len(esr) == GEN_WINDOWS and np.all(np.isfinite(esr))
+          and np.all(np.isfinite(r["per_window"]["bicubic_mse"])), "generate (c): bad outputs")
+    bad = 0
+    for (xy, p), ev, hw in ((ci, inp, LR), (cg, gt, GT)):
+        cuda = batch_counts_from_compact(torch.from_numpy(xy).to(dev), torch.from_numpy(p).to(dev),
+                                         hw).cpu().numpy()
+        for k in range(len(ev)):
+            e = torch.from_numpy(ev[k, 0])
+            want = events_to_channels(e[0], e[1], e[3], hw).numpy().transpose(1, 2, 0)
+            bad += int(not np.array_equal(cuda[k, 0], want))
+    check(bad == 0, f"generate (c): {bad} windows' kernel counts differ from events_to_channels")
+    print(f"generate (c) engine: {GEN_WINDOWS} simulated down8 window pairs {LR} -> {GT} "
+          f"({N_LR} events, sliding {N_LR // 2}; GT {SCALE**2 * N_LR} down2 events) through "
+          f"infer_windows, full "
+          f"BMCNet n_c=128 n_b=5 x4 seeded, {wall / GEN_WINDOWS * 1e3:.3f} ms/window, mean "
+          f"esr_mse {float(esr.mean()):.6f}, bicubic_mse "
+          f"{float(np.mean(r['per_window']['bicubic_mse'])):.6f}; rasterizer launches "
+          f"{got['rasterize_counts']}; kernel counts equal to events_to_channels in all "
+          f"{len(inp) + len(gt)} windows; on {card}")
+    return got["rasterize_counts"]
+
+
+def gen_encodings(dev, inp, card: str) -> None:
+    """(d) The auxiliary encodings of ``GEN_ENC_BATCH`` windows on the card
+    against the CPU: counts, stacks, masks, ``stack_to_count`` and the hot
+    mask exactly, voxels within ``GEN_VOXEL_RTOL`` of each grid's largest
+    magnitude; then (e) the stack redistributed back to events on the host,
+    native against numpy."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch import native
+    from bmcnet_esr_torch.ops import batch, encodings
+
+    lists = np.ascontiguousarray(inp[:GEN_ENC_BATCH, 0].transpose(0, 2, 1))  # [B, N, 4]
+
+    def encode(device):
+        ev = torch.from_numpy(lists).to(device)
+        conv = encodings.event_conversion(ev, GEN_TIME_BINS, LR)
+        out = {"e_cnt": conv["e_cnt"], "e_stack": conv["e_stack"],
+               "stack_to_count": encodings.stack_to_count(conv["e_stack"])}
+        out["stack_polarity"] = torch.stack([encodings.events_to_stack_polarity(
+            e[:, 0], e[:, 1], e[:, 2], e[:, 3], GEN_TIME_BINS, LR) for e in ev])
+        out["mask"] = torch.stack([encodings.events_to_mask(e[:, 0], e[:, 1], e[:, 3], LR)
+                                   for e in ev])
+        rate = (conv["e_cnt"].sum(1) > 0).to(torch.float32).mean(0)
+        out["hot_mask"] = encodings.get_hot_event_mask(rate, GEN_ENC_BATCH, 100, 5, 0.5)
+        out["restore"] = encodings.event_restore(ev / torch.tensor(
+            [LR[1], LR[0], 1.0, 1.0], device=device), LR)
+        voxels = {"e_voxel": conv["e_voxel"],
+                  "batch_voxels": batch.batch_events_to_voxels(ev.transpose(1, 2),
+                                                               GEN_TIME_BINS, LR)}
+        return ({k: v.cpu().numpy() for k, v in out.items()},
+                {k: v.cpu().numpy() for k, v in voxels.items()})
+
+    (exact, vox), (exact_cpu, vox_cpu) = encode(dev), encode("cpu")
+    for k in exact:
+        check(np.array_equal(exact[k], exact_cpu[k]), f"generate (d): {k} differs card vs CPU")
+    worst = max(float(np.abs(vox[k] - vox_cpu[k]).max() / np.abs(vox_cpu[k]).max())
+                for k in vox)
+    check(worst <= GEN_VOXEL_RTOL, f"generate (d): voxels differ by {worst:.3e}")
+    check(exact["hot_mask"].min() == 0 and exact["e_cnt"].sum() > 0,
+          "generate (d): the hot mask masks nothing or the counts are empty")
+    print(f"generate (d) encodings of {GEN_ENC_BATCH} windows, card against CPU: "
+          f"{', '.join(sorted(exact))} bit-identical; voxels (event_conversion, "
+          f"batch_events_to_voxels) within {worst:.3e} of each grid's largest magnitude "
+          f"(bound {GEN_VOXEL_RTOL:g}); hot mask zeroes {int((exact['hot_mask'] == 0).sum())} "
+          f"pixels; on {card}")
+
+    stack = exact_cpu["e_stack"]
+    native.redistribute_stack(stack)  # builds and loads eventops.cpp
+    t = time.perf_counter()
+    ours = native.redistribute_stack(stack)
+    native_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    plain = encodings.event_redistribute_stack(stack)
+    numpy_ms = (time.perf_counter() - t) * 1e3
+    check(np.array_equal(ours, plain), "generate (e): native redistribution differs from numpy")
+    print(f"generate (e) redistribution of the {stack.shape} stacks ({int(np.abs(stack).sum())} "
+          f"events) on the host: native {native_ms:.3f} ms, numpy {numpy_ms:.3f} ms "
+          f"({numpy_ms / native_ms:.1f}x), equal; host of {card}")
+
+
+def gen_timing(dev, frames, ts, stats: dict, card: str) -> None:
+    """(e) ms an interval of the device step at 360x640 (CUDA events over
+    three chunks after a warm-up), events/s of the whole scale-1 run of
+    (a), its peak memory, and the idle share of one profiled chunk (step
+    and compaction) framed by ``profile_edge``."""
+    import numpy as np
+    import torch
+
+    from bmcnet_esr_torch.data.simulator import EventSimulator, _log_intensity
+
+    hw = frames.shape[1:]
+    cfg = gen_config(seed=3)
+    sim = EventSimulator(hw, cfg, device=dev)
+    logl = torch.as_tensor(_log_intensity(frames, cfg.log_eps), device=dev)
+    dts = torch.as_tensor(np.diff(ts).astype(np.float32), device=dev)
+    state = (logl[0], logl[0], torch.full(hw, -torch.inf, device=dev))
+    k = cfg.chunk
+    check(len(frames) > 5 * k, f"{len(frames)} frames hold no 5 chunks of {k} intervals")
+
+    def chunk(c, state):
+        return sim._chunk_step(state, logl[1 + c * k : 1 + (c + 1) * k], dts[c * k : (c + 1) * k])
+
+    state, _ = chunk(0, state)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for c in range(1, 4):
+        state, outs = chunk(c, state)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * k)
+    p = _profiled(lambda: sim._compact(chunk(4, state)[1]), k, "generate chunk", "interval")
+    print(f"generate (e) timing at {hw[0]}x{hw[1]}, M={cfg.max_events_per_pixel}, chunk {k}: "
+          f"device step {ms:.4f} ms an interval (CUDA events, 3 chunks); the scale-1 run of "
+          f"(a): {stats['events']} events in {stats['wall']:.3f} s, "
+          f"{stats['events'] / stats['wall']:.4e} events/s end to end, peak memory "
+          f"{stats['peak'] / 2**20:.1f} MiB; one profiled chunk with its compaction: "
+          f"{p['wall_ms']:.4f} ms wall and {p['busy_ms']:.4f} ms device busy an interval, idle "
+          f"share {p['idle']:.1%}, {p['launches']:.0f} launches an interval; on {card}")
+
+
+def phase_generate(dev, card: str) -> dict:
+    """Video -> events on the card (``data/simulator.py``) at the NFS preset's
+    full grid, its down8 windows through the engine, and the encodings.
+    Returns the rasterizer's launches on this path."""
+    import importlib
+
+    import numpy as np
+
+    from bmcnet_esr_torch.data.demo import demo_video
+    from bmcnet_esr_torch.data.simulator import downscale_frames
+    from bmcnet_esr_torch.data.synthesis import PRESETS
+
+    mods = {n: importlib.import_module(f"bmcnet_esr_torch.kernels.{n}") for n in KERNEL_MODULES}
+    t0 = time.perf_counter()
+    laps = {}
+    mark = [t0]
+
+    def lap(name):
+        laps[name] = time.perf_counter() - mark[0]
+        mark[0] = time.perf_counter()
+
+    res = tuple(PRESETS["nfs"]["resolution"])
+    frames, _ = demo_video(GEN_FRAMES, res, 0)
+    ts = np.arange(GEN_FRAMES, dtype=np.float64) / GEN_FPS
+    pyramid = {s: downscale_frames(frames, s) for s in GEN_SCALES}
+    check(pyramid[8].shape[1:] == LR, f"down8 of {res} is {pyramid[8].shape[1:]}, not {LR}")
+    try:
+        import cv2  # noqa: F401
+        route = "cv2.resize"
+    except ImportError:
+        route = "the F.interpolate fallback (no cv2 here)"
+    print(f"generate: the demo video at {res[0]}x{res[1]}, {GEN_FRAMES} frames at {GEN_FPS:g} "
+          f"frames/s, downscaled by {route}")
+    lap("video")
+    streams, stats = gen_exact(dev, pyramid, ts, card)
+    lap("(a)")
+    gen_noise(dev, frames, ts, card)
+    lap("(b)")
+    inp, gt = gen_windows(streams[8], streams[2], GEN_WINDOWS + 1)
+    launches = gen_engine(dev, mods, inp, gt, card)
+    lap("(c)")
+    gen_encodings(dev, inp, card)
+    lap("(d)")
+    gen_timing(dev, frames, ts, stats, card)
+    lap("(e)")
+    print(f"generate phase: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()) + ")")
+    return {"rasterize_counts": launches}
+
+
+PHASES = ("int8_kernels", "checkpoint", "rollouts", "h5", "timing", "generate", "serve", "export",
+          "train", "losses", "parallel")
 
 
 def main(argv=None) -> int:
@@ -4042,6 +4522,9 @@ def main(argv=None) -> int:
         split_convolutions(dev, card)
         t8 = time_int8(dev)
         done("timing")
+    if "generate" in phases:  # early too: it profiles one chunk
+        generate_launches = phase_generate(dev, card)
+        done("generate")
     if "serve" in phases:  # early: the profiler loses records late in a long run
         serve_launches = phase_serve(dev, card)
         done("serve")
@@ -4075,7 +4558,8 @@ def main(argv=None) -> int:
         "launches": (launches["rasterize_counts"] + train_launches["rasterize_counts"]
                      + losses_launches["rasterize_counts"]
                      + serve_launches["rasterize_counts"] + export_launches["rasterize_counts"]
-                     + parallel_launches["rasterize_counts"]),
+                     + parallel_launches["rasterize_counts"]
+                     + generate_launches["rasterize_counts"]),
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -4107,7 +4591,8 @@ def main(argv=None) -> int:
           f"{serve_launches['rasterize_counts']} on the serving path, "
           f"{export_launches['rasterize_counts']} through serving bundles, "
           f"{parallel_launches['rasterize_counts']} on the parallel paths (data and tensor "
-          f"parallelism, sharded serving); int8 kernels on "
+          f"parallelism, sharded serving), {generate_launches['rasterize_counts']} on simulated "
+          f"windows (generate); int8 kernels on "
           f"the serving path: "
           f"{ {k: v for k, v in serve_launches.items() if k != 'rasterize_counts'} }"
           f", through bundles: "

@@ -118,11 +118,22 @@ def test_dataset_windows_match_jax(g, files):
 
 
 def test_dataset_unported_options_raise(files):
-    cfg = DatasetConfig.from_dict({"scale": 4, "ori_scale": "down4", "mode": "frame"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        EventH5Dataset(files[0], cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        EventH5Dataset(files[0], DatasetConfig(scale=4, ori_scale="down4", need_gt_frame=True))
+    """``frame`` mode and ``need_gt_frame`` are ported and raise no
+    ``NotImplementedError``: on this fixture, which stores no frames, both
+    packages refuse ``frame`` mode with the same empty-dataset error, and
+    with ``need_gt_frame`` both give the same windows and no GT frame.  The
+    name dates from when the port refused both options."""
+    block = {"scale": 4, "ori_scale": "down4", "mode": "frame"}
+    for cls, config in ((EventH5Dataset, DatasetConfig), (JEventH5Dataset, JDatasetConfig)):
+        with pytest.raises(ValueError, match="empty dataset"):
+            cls(files[0], config.from_dict(block))
+    ours = EventH5Dataset(files[0], DatasetConfig(scale=4, ori_scale="down4", need_gt_frame=True))
+    theirs = JEventH5Dataset(files[0], JDatasetConfig(scale=4, ori_scale="down4",
+                                                     need_gt_frame=True))
+    a, b = ours.get_window(1, seed=5), theirs.get_window(1, seed=5)
+    assert sorted(a) == sorted(b) and "gt_frame" not in a
+    for k in b:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
 
 
 def test_infer_file_reproduces_reference_goldens(g, files):
