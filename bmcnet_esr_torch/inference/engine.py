@@ -75,6 +75,7 @@ from bmcnet_esr_torch.models import (
 from bmcnet_esr_torch.ops.batch import batch_counts_from_compact, compact_events
 from bmcnet_esr_torch.ops.resize import resize_bicubic
 from bmcnet_esr_torch.utils import MetricTracker, YamlResultLogger, resolve_device, strict_fp32
+from bmcnet_esr_torch.utils.timers import Timer
 from bmcnet_esr_torch.vis import EventVisualizer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -356,8 +357,10 @@ class InferenceEngine:
         model = shard.model
         if not model.quant or _callers(act_scales(model)):
             return
-        pairs = _calib_pairs(dev[0], dev[1], inp_res)
-        calibrate_act_scales(model, pairs, model.init_state(batch, *inp_res, device=shard.device))
+        with Timer("rollout.calibrate"):
+            pairs = _calib_pairs(dev[0], dev[1], inp_res)
+            calibrate_act_scales(model, pairs,
+                                 model.init_state(batch, *inp_res, device=shard.device))
         for s in act_scales(model).values():
             _DERIVED[id(s)] = weakref.ref(s, lambda _, key=id(s): _DERIVED.pop(key, None))
 
@@ -369,7 +372,8 @@ class InferenceEngine:
         pairs = torch.stack([frames[:-1], frames[1:]], 2)          # [S, B, 2, H, W, 2]
         esr, bicm, extras, preds, bics = [], [], [], [], []
         for pair, gt in zip(pairs, gts):
-            carry = model(pair, *carry)
+            with Timer("rollout.forward"):
+                carry = model(pair, *carry)
             pred = carry[-1]
             pred_fit = resize_bicubic(pred, gt_res) if pred.shape[1:3] != gt.shape[1:3] else pred
             bic = resize_bicubic(pair[:, 1], gt_res)
@@ -412,13 +416,19 @@ class InferenceEngine:
         mesh splits the streams) enqueues its lanes' chunk before any waits
         for its results.  ``consume(pos, steps, out)`` gets each chunk's host
         results in order, lanes in stream order.  Returns the MACs per
-        window of one stream."""
+        window of one stream.  Spans (``utils/timers.py``): ``rollout``
+        around it all, and inside it ``rollout.load_wait`` (waiting on the
+        loader thread), ``rollout.upload`` (enqueueing the copies),
+        ``rollout.calibrate``, ``rollout.dispatch`` (enqueueing a chunk, a
+        ``rollout.forward`` a model call) and ``rollout.drain`` (the host
+        blocked on the chunk's results)."""
         self._overlap_skips = 0
         shards = self._split(batch)
         lanes = [sl for _, sl in shards]
         pool = ThreadPoolExecutor(max_workers=1)
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), Timer(
+                    "rollout", windows=batch * sum(s for _, s in chunk_bounds)):
                 carries = []
                 for sh, sl in shards:
                     with sh.on():
@@ -428,12 +438,15 @@ class InferenceEngine:
                 next_up = None
                 for ci, (pos, steps) in enumerate(chunk_bounds):
                     if next_up is None:
-                        arrays = pending.result()
+                        with Timer("rollout.load_wait"):
+                            arrays = pending.result()
                         if ci + 1 < len(chunk_bounds):
                             pending = pool.submit(self._load, load_chunk,
                                                   *chunk_bounds[ci + 1], lanes)
-                        next_up = self._upload(shards, arrays)
-                    devs = [self._adopt(sh, up) for (sh, _), up in zip(shards, next_up)]
+                        with Timer("rollout.upload"):
+                            next_up = self._upload(shards, arrays)
+                    with Timer("rollout.upload"):
+                        devs = [self._adopt(sh, up) for (sh, _), up in zip(shards, next_up)]
                     next_up = None
                     for i, ((sh, sl), dev) in enumerate(zip(shards, devs)):
                         n = sl.stop - sl.start
@@ -452,31 +465,36 @@ class InferenceEngine:
 
                     t0 = time.perf_counter()
                     results = []
-                    for i, ((sh, _), dev) in enumerate(zip(shards, devs)):
-                        with sh.on():
-                            carries[i], res = self._run_chunk(sh.model, carries[i], dev,
-                                                              inp_res, gt_res, want_images)
-                        results.append(res)
+                    with Timer("rollout.dispatch", windows=batch * steps):
+                        for i, ((sh, _), dev) in enumerate(zip(shards, devs)):
+                            with sh.on():
+                                carries[i], res = self._run_chunk(sh.model, carries[i], dev,
+                                                                  inp_res, gt_res, want_images)
+                            results.append(res)
                     # upload the NEXT chunk while this one computes, but only
                     # when its host read has already finished: a read still
                     # running would bill host IO to this chunk's time
                     if self.h2d_overlap and ci + 1 < len(chunk_bounds):
                         if pending.done():
-                            arrays = pending.result()
+                            with Timer("rollout.load_wait"):
+                                arrays = pending.result()
                             if ci + 2 < len(chunk_bounds):
                                 pending = pool.submit(
                                     self._load, load_chunk, *chunk_bounds[ci + 2], lanes
                                 )
-                            next_up = self._upload(shards, arrays)
+                            with Timer("rollout.upload"):
+                                next_up = self._upload(shards, arrays)
                         else:
                             self._overlap_skips += 1
-                    # the first copy of each shard synchronizes its chunk
-                    esr = self._to_host(shards, [res[:1] for res in results])[0]
-                    dt_ms = (time.perf_counter() - t0) * 1000.0 / steps
-                    out = _ChunkOut(esr, *self._to_host(shards, [res[1:3] for res in results]),
-                                    dt_ms)
-                    if want_images:
-                        out.images = tuple(self._to_host(shards, [res[3] for res in results]))
+                    with Timer("rollout.drain"):
+                        # the first copy of each shard synchronizes its chunk
+                        esr = self._to_host(shards, [res[:1] for res in results])[0]
+                        dt_ms = (time.perf_counter() - t0) * 1000.0 / steps
+                        out = _ChunkOut(esr, *self._to_host(shards,
+                                                            [res[1:3] for res in results]), dt_ms)
+                        if want_images:
+                            out.images = tuple(self._to_host(shards,
+                                                             [res[3] for res in results]))
                     consume(pos, steps, out)
         finally:
             # an in-flight read must finish or be cancelled before the caller

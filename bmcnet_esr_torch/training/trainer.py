@@ -95,6 +95,7 @@ from bmcnet_esr_torch.utils import (
     resolve_device,
     strict_fp32,
 )
+from bmcnet_esr_torch.utils.timers import Timer
 
 def build_model(config: Dict[str, Any], scale: int, generator: Optional[torch.Generator] = None):
     """Model from the recipe's ``model`` block (defaults ``n_c=128``,
@@ -522,15 +523,18 @@ class Trainer:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         os.kill(os.getpid(), signal.SIGTERM)
 
-    def _log_window(self, iter_idx: int, pending: list, start_iteration: int, t_start: float):
+    def _log_window(self, iter_idx: int, pending: list, since: tuple) -> tuple:
+        """Log the iterations since the last log line, ``since`` = (its
+        iteration, its ``time.perf_counter()``); returns this line's."""
         window_mse, window_tot, window_skip = [], [], 0
-        for _, m, _ in pending:
-            mse, tot = float(m["train_mse_loss"]), float(m["train_loss"])
-            window_mse.append(mse)
-            window_tot.append(tot)
-            window_skip += int(m.get("train_skipped", 0))
-            self.train_metrics.update("train_mse_loss", mse)
-            self.train_metrics.update("train_loss", tot)
+        with Timer("train.wait"):  # the host reads the window's metrics
+            for _, m, _ in pending:
+                mse, tot = float(m["train_mse_loss"]), float(m["train_loss"])
+                window_mse.append(mse)
+                window_tot.append(tot)
+                window_skip += int(m.get("train_skipped", 0))
+                self.train_metrics.update("train_mse_loss", mse)
+                self.train_metrics.update("train_loss", tot)
         if window_skip:
             self.skipped_steps += window_skip
             self.logger.warning(
@@ -547,57 +551,74 @@ class Trainer:
         self.writer.add_scalar("train_mse_loss", mse)
         self.writer.add_scalar("train_loss", tot)
         self.writer.add_scalar("learning_rate", lr)
-        ips = (iter_idx - start_iteration + 1) / max(time.time() - t_start, 1e-9)
+        now = time.perf_counter()
+        ips = (iter_idx - since[0]) / max(now - since[1], 1e-9)
         self.logger.info(f"iter {iter_idx}/{self.iterations} train_mse_loss: {mse:.4e} "
                          f"train_loss: {tot:.4e} lr: {lr:.4e} iters/sec: {ips:.2f}")
         pending.clear()
+        return iter_idx, now
 
     def _train_loop(self, start_iteration: int) -> Dict[str, float]:
+        """The iterations, each a ``train.iteration`` span (``utils/timers.py``)
+        from the request of its batch to the end of its body, holding
+        ``train.input`` (the loader and the next batch's upload),
+        ``train.step`` (the host enqueueing the step) and ``train.wait``
+        (the host blocked on the device)."""
         iter_idx, valid_stamp, stop = start_iteration, 1, False
         pending: list = []  # (iteration, device metrics, done event)
-        t_start = time.time()
+        logged = (start_iteration - 1, time.perf_counter())
         while not stop:
             epoch_start = iter_idx
-            for batch in self._device_prefetched(self.train_loader):
-                self.state, metrics = self.train_step(self.state, batch)
-                pending.append((iter_idx, metrics, self._mark()))
-                if len(pending) >= self.MAX_PENDING and pending[-self.MAX_PENDING][2] is not None:
-                    pending[-self.MAX_PENDING][2].synchronize()
-
-                if iter_idx % self.train_log_step == 0:
-                    self._log_window(iter_idx, pending, start_iteration, t_start)
-
-                best = False
-                if (self.valid_loader is not None and iter_idx % self.valid_step == 0
-                        and iter_idx != 0):
-                    val_log = self._valid(valid_stamp)
-                    self.writer.set_step(valid_stamp, "valid")
-                    for k, v in val_log.items():
-                        self.writer.add_scalar(f"stamp_{k}", v)
-                        self.logger.info(f"    {k:25s}: {v:.4e}")
-                    stop, best = self._eval_monitor(val_log)
-                    valid_stamp += 1
-                    if stop:
-                        # count the finished iteration before leaving: the
-                        # final save labels iter_idx - 1, and the state holds
-                        # this iteration's update already
-                        iter_idx += 1
+            batches = self._device_prefetched(self.train_loader)
+            while True:
+                with Timer("train.iteration") as iteration:
+                    with Timer("train.input"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        iteration.cancel()
                         break
+                    with Timer("train.step", rows=len(next(iter(batch.values())))):
+                        self.state, metrics = self.train_step(self.state, batch)
+                    pending.append((iter_idx, metrics, self._mark()))
+                    if (len(pending) >= self.MAX_PENDING
+                            and pending[-self.MAX_PENDING][2] is not None):
+                        with Timer("train.wait"):
+                            pending[-self.MAX_PENDING][2].synchronize()
 
-                if (iter_idx % self.save_period == 0 and iter_idx != 0) or best:
-                    self.save(iter_idx, best=best)
+                    if iter_idx % self.train_log_step == 0:
+                        logged = self._log_window(iter_idx, pending, logged)
 
-                iter_idx += 1
-                if iter_idx >= self.iterations:
-                    self.logger.info("training completes!")
-                    stop = True
-                    break
-                if (self._preempted if self.layout is None
-                        else any_rank(self._preempted, self._host)):
-                    self.logger.warning(f"SIGTERM received — checkpointing at iteration "
-                                        f"{iter_idx - 1} and exiting for clean resume")
-                    stop = True
-                    break
+                    best = False
+                    if (self.valid_loader is not None and iter_idx % self.valid_step == 0
+                            and iter_idx != 0):
+                        val_log = self._valid(valid_stamp)
+                        self.writer.set_step(valid_stamp, "valid")
+                        for k, v in val_log.items():
+                            self.writer.add_scalar(f"stamp_{k}", v)
+                            self.logger.info(f"    {k:25s}: {v:.4e}")
+                        stop, best = self._eval_monitor(val_log)
+                        valid_stamp += 1
+                        if stop:
+                            # count the finished iteration before leaving: the
+                            # final save labels iter_idx - 1, and the state holds
+                            # this iteration's update already
+                            iter_idx += 1
+                            break
+
+                    if (iter_idx % self.save_period == 0 and iter_idx != 0) or best:
+                        self.save(iter_idx, best=best)
+
+                    iter_idx += 1
+                    if iter_idx >= self.iterations:
+                        self.logger.info("training completes!")
+                        stop = True
+                        break
+                    if (self._preempted if self.layout is None
+                            else any_rank(self._preempted, self._host)):
+                        self.logger.warning(f"SIGTERM received — checkpointing at iteration "
+                                            f"{iter_idx - 1} and exiting for clean resume")
+                        stop = True
+                        break
             if iter_idx == epoch_start and not stop:
                 # an epoch of no batch would loop here forever (a node's
                 # shard of a small datalist under drop_last, for one)

@@ -4,7 +4,8 @@
 ``trace(log_dir)`` records the CPU and CUDA activity of a block with
 ``torch.profiler`` and writes a trace TensorBoard loads;
 ``device_time`` times a callable with the device drained after each call;
-``annotate(name)`` marks a named span in the trace.
+``annotate(name)`` is a span of ``utils/timers.py``: kept while a profiler
+runs, and shown in the trace as a ``record_function`` of its name.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+from bmcnet_esr_torch.utils.timers import Timer
 
 
 @contextlib.contextmanager
@@ -51,6 +54,6 @@ def device_time(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> Tuple[
     return med, 1.0 / med
 
 
-def annotate(name: str):
+def annotate(name: str) -> Timer:
     """A named span in the trace: ``with annotate('train_step'): ...``."""
-    return record_function(name)
+    return Timer(name)
