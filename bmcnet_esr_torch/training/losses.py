@@ -90,6 +90,13 @@ def _build_lpips_term(cfg: Dict, ctx=None) -> Callable:
         return perceptual_loss(lp, torch.movedim(pred, -1, 1), torch.movedim(gt, -1, 1),
                                normalize=True)
 
+    def span_attrs(pred):
+        """The backbone's passes a call runs: both images of every pair that
+        ``perceptual_loss`` makes of the batch's channels."""
+        c = pred.shape[-1]
+        return {"images": 2 * pred.shape[0] * (1 if c in (1, 3) else c)}
+
+    fn.span_attrs = span_attrs
     return fn
 
 

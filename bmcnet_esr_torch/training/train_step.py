@@ -41,6 +41,7 @@ from bmcnet_esr_torch.ops.batch import counts_from_batch, sliding_pairs
 from bmcnet_esr_torch.ops.resize import resize_bicubic
 from bmcnet_esr_torch.training.losses import adapt_term, needs_events
 from bmcnet_esr_torch.utils.device import strict_fp32
+from bmcnet_esr_torch.utils.timers import Timer
 
 Tensor = torch.Tensor
 
@@ -142,13 +143,27 @@ def _rollout(
     that the ranks' mean is the whole batch's sum.  ``batch_max``, when
     given, is ``aux['batch_max']``: the elementwise max of a tensor over the
     ranks that share the batch (the data-parallel step's), for a term that
-    reads a statistic of the whole batch (``ssim``'s GT range)."""
+    reads a statistic of the whole batch (``ssim``'s GT range).
+
+    Each term's call is a ``train.loss.<name>`` span (``utils/timers.py``)
+    with ``recompute`` 1 where remat's backward reruns the body, and the
+    term's own ``span_attrs(pred_fit)`` (LPIPS: ``images``); a rerun body is
+    a ``train.recompute`` span.  The rerun runs inside the backward, on
+    autograd's device thread on a GPU, so its spans have no parent there."""
     b, _, h, w, _ = inp_frames.shape
     pairs = sliding_pairs(inp_frames, seqn)  # [B, S, seqn, H, W, 2]
     s = pairs.shape[1]
     gt_resolution = tuple(gt_resolution)
+    spans = tuple(f"train.loss.{name}" for name, _, _ in extra_losses)
+    rerun = [0]  # 1 once the unroll has run forward: a later body call is remat's
 
-    def body(x, gt, step, events, events_len, *carry):
+    def body(*args):
+        if rerun[0]:
+            with Timer("train.recompute"):
+                return step_body(*args)
+        return step_body(*args)
+
+    def step_body(x, gt, step, events, events_len, *carry):
         prev_pred = carry[-1]  # the recurrent output slot (both variants)
         outs = model(x, *carry)
         pred = outs[-1]
@@ -164,10 +179,12 @@ def _rollout(
                 aux["events"] = events
                 if events_len is not None:
                     aux["events_len"] = events_len
-            for _, weight, fn in extra_losses:
+            for span, (_, weight, fn) in zip(spans, extra_losses):
                 if getattr(fn, "batch_sum", False):
                     weight = weight * batch_scale
-                extra = extra + weight * fn(pred_fit, gt, aux)  # scalar
+                attrs = fn.span_attrs(pred_fit) if hasattr(fn, "span_attrs") else {}
+                with Timer(span, recompute=rerun[0], **attrs):
+                    extra = extra + weight * fn(pred_fit, gt, aux)  # scalar
         return (*outs, mse, extra)
 
     carry = tuple(model.init_state(b, h, w, device=inp_frames.device))
@@ -185,6 +202,7 @@ def _rollout(
         carry = tuple(out[:-2])
         mses.append(out[-2])
         extras.append(out[-1])
+    rerun[0] = int(use_remat)
     return torch.stack(mses), torch.stack(extras)
 
 
@@ -278,8 +296,10 @@ def make_train_step(
         m = b // grad_accum
         totals, mses = [], []
         for a in range(grad_accum):
-            total, aux = batch_loss(model, {k: v[a * m : (a + 1) * m] for k, v in batch.items()})
-            total.backward()  # sums into .grad
+            with Timer("train.microbatch", rows=m):
+                total, aux = batch_loss(model,
+                                        {k: v[a * m : (a + 1) * m] for k, v in batch.items()})
+                total.backward()  # sums into .grad
             totals.append(total.detach())
             mses.append(aux["mse_loss"].detach())
         for p in model.parameters():
