@@ -28,6 +28,12 @@ metrics come back to the host.  Behaviour kept from the JAX engine:
   window pairs of every file or batched group (``engine.py:260-283``),
   never overwriting scales the caller installed.
 
+On a CUDA device, a rollout whose streams all run on ``self.model`` (no
+mesh split) replays the model's per-window body as a CUDA graph, captured
+for the last shape seen (``inference/graphs.py``); the engine's per-window
+glue, the rasterizer calls, uploads, drains, calibration and the flop count
+stay eager, as do mesh replicas.
+
 ``mesh=`` (``parallel.make_mesh``) shards batched rollouts by stream, the
 counterpart of ``engine.py:150-258``: the B streams split into ``mesh.size``
 contiguous groups, each rolled out on its mesh device and its own CUDA
@@ -62,6 +68,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from bmcnet_esr_torch.data import DatasetConfig, EventH5Dataset
+from bmcnet_esr_torch.inference import graphs
 from bmcnet_esr_torch.losses.restore import psnr_metric, ssim_metric
 from bmcnet_esr_torch.models import (
     BMCNet,
@@ -239,6 +246,9 @@ class InferenceEngine:
         self._overlap_skips = 0
         self._macs: Dict[Tuple, float] = {}  # MACs per window, by (batch, input resolution)
         self._solo = _Shard.on_device(self.model, self.device, own_stream=False)
+        # the model's per-window body as a CUDA graph, for rollouts on the solo shard
+        self._graphs = (graphs.ForwardGraphs(self.model) if graphs.available(self.device)
+                        else None)
         self.mesh = mesh
         # one shard a mesh device, its streams without a model: _split gives
         # each a model for the rollout at hand
@@ -420,14 +430,18 @@ class InferenceEngine:
         around it all, and inside it ``rollout.load_wait`` (waiting on the
         loader thread), ``rollout.upload`` (enqueueing the copies),
         ``rollout.calibrate``, ``rollout.dispatch`` (enqueueing a chunk, a
-        ``rollout.forward`` a model call) and ``rollout.drain`` (the host
-        blocked on the chunk's results)."""
+        ``rollout.forward`` a model call, ``rollout.capture`` and
+        ``rollout.replay`` inside it where graphs serve it) and
+        ``rollout.drain`` (the host blocked on the chunk's results)."""
         self._overlap_skips = 0
         shards = self._split(batch)
         lanes = [sl for _, sl in shards]
+        solo = len(shards) == 1 and shards[0][0] is self._solo
+        replays = (self._graphs.installed() if solo and self._graphs is not None
+                   else contextlib.nullcontext())
         pool = ThreadPoolExecutor(max_workers=1)
         try:
-            with torch.inference_mode(), Timer(
+            with torch.inference_mode(), replays, Timer(
                     "rollout", windows=batch * sum(s for _, s in chunk_bounds)):
                 carries = []
                 for sh, sl in shards:

@@ -122,6 +122,9 @@ class _Model(nn.Module):
     """Shared shell: dtype, quant mode, input split and the HR head."""
 
     n_states: int
+    # the body's CUDA graphs (inference/graphs.py) while an engine's rollout
+    # installs them
+    _graphs = None
 
     def __init__(self, scale: int, n_c: int, n_b: int, repeat: int, dtype, quant):
         super().__init__()
@@ -145,9 +148,16 @@ class _Model(nn.Module):
         bilinear upsample of the second window."""
         return (_nhwc(F.pixel_shuffle(x_o, self.scale)) + skip).to(self.dtype)
 
-    def forward(self, x: Tensor, *states: Tensor):
+    def _body(self, x: Tensor, *states: Tensor):
+        """The prologue and the backbone: ``(f2, *hidden, x_o)``, the hidden
+        states NCHW.  What ``inference/graphs.py`` captures."""
         f2, args = self._prologue(x, *states)
-        *hidden, x_o = self.neuro(*args)
+        return (f2, *self.neuro(*args))
+
+    def forward(self, x: Tensor, *states: Tensor):
+        graphs = self._graphs
+        body = graphs if graphs is not None and graphs.engages() else self._body
+        f2, *hidden, x_o = body(x, *states)
         return (*[_nhwc(h) for h in hidden], self._head(x_o, upsample_bilinear(f2, self.scale)))
 
     def init_state(self, batch: int, h: int, w: int, device=None) -> Tuple[Tensor, ...]:

@@ -30,11 +30,15 @@ failure:
    45x80 -> 180x320 (2048 LR events per window), fed compact windows made
    with numpy: full BMCNet with seeded random weights in float32, bfloat16,
    int8, int8_pall and int8_chainq, and the released plain checkpoint in
-   float32, bfloat16 and all seven int8 dtypes.  Every kernel's launch
-   count is reset just before each rollout and read just after; for the
-   int8 dtypes it must equal the count derived from the model's structure.
-   Then ``torch.profiler`` breakdowns, and the float32 engines' first
-   windows rolled out again on the CPU and compared;
+   float32, bfloat16 and all seven int8 dtypes.  Each rollout replays the
+   CUDA graph its warm-up captured; it runs again with the engine's graph
+   off, per-window MSEs bit-equal.  Every kernel's launch count is reset
+   just before each rollout and read just after; with the graph off, for
+   the int8 dtypes, it must equal the count derived from the model's
+   structure, and graphed only calibration's (replays make no Python
+   call).  Then ``torch.profiler`` breakdowns, the port's int8 kernels'
+   device records a replayed window equal to the model's sites, and the
+   float32 engines' first windows rolled out again on the CPU and compared;
 5. when ``h5py`` imports: ``infer_file`` and ``cli.infer`` on the fixture of
    ``tests/goldens/infer_goldens.npz``, per-window MSEs against the goldens,
    and ``cli.infer --dtype int8_pall``;
@@ -1004,7 +1008,15 @@ KERNEL_FAMILIES = {"rasterize_counts": "band_kernel", "quantize_act": "quantize_
 
 
 def phase_rollouts(dev, card: str) -> dict:
-    """The main path; returns each kernel's launches made by it."""
+    """The main path; returns each kernel's launches made by it.
+
+    Each engine's warm-up captures its CUDA graph (``inference/graphs.py``;
+    the ``rollout.capture`` span times it).  The timed rollout replays it,
+    and the kernels' ``launches`` counters, which count Python calls, see
+    calibration's and the rasterizer's launches alone.  The same rollout
+    with the engine's graph off then counts the model's launches where they
+    launch, against :func:`expected_launches`, and holds the graphed
+    rollout's per-window MSEs bit for bit."""
     import importlib
 
     import numpy as np
@@ -1015,6 +1027,7 @@ def phase_rollouts(dev, card: str) -> dict:
     from bmcnet_esr_torch.inference.engine import DTYPES, INT8_DTYPES
     from bmcnet_esr_torch.models import BMCNet, BMCNetPlain, load_checkpoint
     from bmcnet_esr_torch.ops.batch import compact_events
+    from bmcnet_esr_torch.utils import timers
 
     mods = {n: importlib.import_module(f"bmcnet_esr_torch.kernels.{n}") for n in KERNEL_MODULES}
     rng = np.random.default_rng(1)
@@ -1042,34 +1055,59 @@ def phase_rollouts(dev, card: str) -> dict:
         m.load_state_dict(sd)
         eng = InferenceEngine(m, DatasetConfig(scale=SCALE), chunk_size=CHUNK,
                               visualize=False, device=dev)
-        eng.infer_windows(load_chunk, 4, LR, GT)  # warm-up, outside the counts
-        engines.append((variant, dtype, eng))
+        with timers.record():  # warm-up, outside the counts: it captures the graph
+            eng.infer_windows(load_chunk, 4, LR, GT)
+        capture = timers.summary().get("rollout.capture", {"count": 0, "total_ms": 0.0})
+        timers.clear()
+        check(capture["count"] == 1, f"{variant} {dtype}: {capture['count']} graph captures "
+                                     "in the warm-up, expected 1")
+        engines.append((variant, dtype, eng, capture["total_ms"]))
 
     torch.cuda.synchronize()
     step("engines and warm-ups")
     totals = {KERNEL_NAMES[n]: 0 for n in KERNEL_MODULES}
     results = []
-    for variant, dtype, eng in engines:
+
+    def counted(roll):
         for mod in mods.values():
             mod.launches = 0
         t0 = time.perf_counter()
-        r = eng.infer_windows(load_chunk, N_WINDOWS, LR, GT, return_per_window=True)
+        r = roll()
         wall = time.perf_counter() - t0
-        got = {KERNEL_NAMES[n]: mod.launches for n, mod in mods.items()}
-        want = expected_launches(variant, dtype, N_WINDOWS, min(CALIB_STEPS, CHUNK, N_WINDOWS))
-        check(got["rasterize_counts"] > 0, f"{variant} {dtype}: the rasterizer never launched")
+        return r, wall, {KERNEL_NAMES[n]: mod.launches for n, mod in mods.items()}
+
+    for variant, dtype, eng, capture_ms in engines:
+        name = f"{variant} {dtype}"
+        roll = lambda: eng.infer_windows(load_chunk, N_WINDOWS, LR, GT,  # noqa: E731
+                                         return_per_window=True)
+        r, wall, graphed = counted(roll)
+        eng._graphs, graphs_off = None, eng._graphs  # the same engine, eager
+        try:
+            r_eager, wall_eager, got = counted(roll)
+        finally:
+            eng._graphs = graphs_off
+        calib = min(CALIB_STEPS, CHUNK, N_WINDOWS)
+        want = expected_launches(variant, dtype, N_WINDOWS, calib)
+        check(got["rasterize_counts"] > 0, f"{name}: the rasterizer never launched")
         for k, v in want.items():
-            check(got[k] == v, f"{variant} {dtype}: {got[k]} {k} launches, the model gives {v}")
+            check(got[k] == v, f"{name}: {got[k]} {k} launches, the model gives {v}")
+        for k, v in {"rasterize_counts": got["rasterize_counts"],
+                     **expected_launches(variant, dtype, 0, calib)}.items():
+            check(graphed[k] == v, f"{name}: the graphed rollout counted {graphed[k]} {k} "
+                                   f"Python launches, calibration and the rasterizer make {v}")
+        for key in ("esr_mse", "bicubic_mse"):
+            check(np.array_equal(r["per_window"][key], r_eager["per_window"][key]),
+                  f"{name}: the graphed rollout's {key} differs from the eager one's")
         for k, v in got.items():
             totals[k] += v
-        results.append((variant, dtype, r, wall, got, want))
+        results.append((variant, dtype, r, wall, got, want, wall_eager, capture_ms))
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader",
          "-i", "0"], capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"after the rollouts: SM clock, max SM clock, power draw = {clocks}")
-    for variant, dtype, r, wall, got, want in results:
+    for variant, dtype, r, wall, got, want, wall_eager, capture_ms in results:
         name = f"{variant} {dtype}"
         esr = r["per_window"]["esr_mse"]
         check(len(esr) == N_WINDOWS and np.all(np.isfinite(esr)), f"{name}: bad esr_mse")
@@ -1078,21 +1116,24 @@ def phase_rollouts(dev, card: str) -> dict:
         print(f"rollout {name}: {N_WINDOWS} windows {LR} -> {GT}, "
               f"{wall / N_WINDOWS * 1e3:.3f} ms/window, {N_WINDOWS / wall:.2f} windows/s "
               f"(engine time {r['time']:.3f} ms/window, {r['macs']:.1f} MMAC/window, "
-              f"mean esr_mse {r['esr_mse']:.5f}) on {card}; launches: rasterize_counts "
+              f"mean esr_mse {r['esr_mse']:.5f}) on {card}, replaying a CUDA graph captured "
+              f"in {capture_ms:.1f} ms; graph off {wall_eager / N_WINDOWS * 1e3:.3f} ms/window, "
+              f"per-window MSEs bit-equal; launches with the graph off: rasterize_counts "
               f"{got['rasterize_counts']}, {counts}")
     for variant in ("full", "plain"):
         macs = {round(r["macs"], 1) for v, d, r, *_ in results if v == variant}
         check(len(macs) == 1, f"{variant}: MMAC/window differs between dtypes: {macs}")
     print(f"kernel launches on the main path: {totals}")
     step("rollouts")
-    for variant, dtype, eng in engines:
+    for variant, dtype, eng, _ in engines:
         if dtype in ("float32", "bfloat16", "int8", "int8_pall"):
-            profile_rollout(f"{variant} {dtype}", eng, load_chunk, min(PROFILE_WINDOWS, N_WINDOWS))
+            profile_rollout(f"{variant} {dtype}", eng, load_chunk, min(PROFILE_WINDOWS, N_WINDOWS),
+                            expected_launches(variant, dtype, 1, 0))
     step("profiles")
 
     # the same engine on the CPU (plain rasterizer, CPU convolutions) over
     # the first windows: per-window MSEs agree to float32 reassociation
-    for (variant, dtype, eng), (*_, r, _w, _g, _e) in zip(engines, results):
+    for (variant, dtype, eng, _), (_v, _d, r, *_) in zip(engines, results):
         if dtype != "float32":
             continue
         n = min(8 if variant == "plain" else 4, N_WINDOWS)
@@ -1127,8 +1168,11 @@ def _profiled(fn, n: int, name: str, what: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
         time.sleep(PROFILE_EDGE_S)
-    # kernel rows only: operator rows repeat the time of the kernels they launch
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # kernel rows only: operator rows repeat the time of the kernels they
+    # launch, and the program's spans show on the device's timeline as user
+    # annotations that cover the kernels inside them
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     dev_time = lambda e: e.self_device_time_total  # noqa: E731
     busy_ms = sum(dev_time(e) for e in rows) / 1e3 / n
     check(busy_ms > 0, f"profile {name}: the trace shows no device time")
@@ -1147,9 +1191,10 @@ def _profiled(fn, n: int, name: str, what: str) -> None:
             "launches": launches, "kernels": ours}
 
 
-def profile_rollout(name: str, eng, load_chunk, n: int) -> None:
+def profile_rollout(name: str, eng, load_chunk, n: int, per_window: dict) -> None:
     """Where the time of a rollout goes, per window; for an int8 engine also
-    its calibration, per calibration step."""
+    its calibration, per calibration step.  The replayed windows' device
+    records of the int8 kernels must be ``per_window`` a window."""
     import torch
 
     from bmcnet_esr_torch.inference import InferenceEngine
@@ -1169,7 +1214,14 @@ def profile_rollout(name: str, eng, load_chunk, n: int) -> None:
         eng = InferenceEngine(eng.model, eng.config, chunk_size=eng.chunk_size,
                               visualize=False, device=eng.device)
         eng.infer_windows(load_chunk, 2, LR, GT)
-    _profiled(lambda: eng.infer_windows(load_chunk, n, LR, GT), n, name, "window")
+    p = _profiled(lambda: eng.infer_windows(load_chunk, n, LR, GT), n, name, "window")
+    print(f"profile {name}: the port's kernels' device records a window, the graph's "
+          "replays with the rasterizer: "
+          + ", ".join(f"{k} {records:.1f}" for k, (_ms, records) in p["kernels"].items()))
+    for k, v in per_window.items():
+        records = round(p["kernels"][k][1] * n)
+        check(records == v * n, f"profile {name}: {records} {k} device records in {n} "
+                                f"replayed windows, the model gives {v * n}")
 
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_grad_parity.py's bound, CPU and card alike
@@ -1290,7 +1342,8 @@ def profile_training(tr, start: int, n: int, bands: int = 2) -> dict:
             tr.train(start_iteration=start)
             torch.cuda.synchronize()
         start += 1 + n
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        rows = [e for e in prof.key_averages()  # kernels, not the spans' annotations
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
         # the rasterizer's kernels: band or, for long compact windows, per event
         band = sum(e.count for e in rows
                    if "band_kernel" in e.key or "event_kernel" in e.key) / n
